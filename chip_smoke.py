@@ -1,0 +1,282 @@
+#!/usr/bin/env python3
+# (C) 2026. Licensed under the Apache License, Version 2.0.
+"""Smoke run of ``sqd_tpu_torch`` on one NVIDIA GPU (Hopper, sm_90a).
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each printing one line; any failure exits non-zero:
+
+1. device — needs CUDA; prints ``nvidia-smi``'s name and power limit;
+2. build — compiles the native host library (g++) and the cross-spin CUDA
+   kernel (nvcc, sm_90a) from the sources in the checkout;
+3. kernel vs plain — the kernel against its plain PyTorch version on the
+   headline operator (M = N = 1024, npair = 256), a ragged small operator, a
+   spin-penalty operator and a wide one (N = 4480: several shared-memory
+   tiles), within ``1e-5 * max(|plain|, 1)``; median times of both at the
+   headline shape from CUDA events;
+4. Davidson — the f32 solver on the headline operator (``bench.py``'s
+   settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
+5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
+   (N2/6-31G CAS(16o,(5,5)e), 1000 x 1000 excitation strings, integrals from
+   the committed FCIDUMP); the kernel must be launched during the solve, and
+   the energy must lie within 1e-7 Ha of a host-f64 Rayleigh quotient of the
+   returned amplitudes and of the ``sqd_tpu`` energy recorded beside the
+   FCIDUMP.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
+TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
+TOL_ENERGY = 1e-7  # Ha
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def excitation_strings(count, norb, n_elec, seed):
+    """HF determinant + a random walk of low-order excitations (as ``bench.py``)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    hf = (1 << n_elec) - 1
+    seen = {hf}
+    frontier = [hf]
+    while len(seen) < count:
+        base = frontier[r.integers(len(frontier))] if frontier else hf
+        occ = [p for p in range(norb) if (base >> p) & 1]
+        virt = [p for p in range(norb) if not (base >> p) & 1]
+        o = occ[r.integers(len(occ))]
+        v = virt[r.integers(len(virt))]
+        new = base ^ (1 << o) ^ (1 << v)
+        if new not in seen:
+            seen.add(new)
+            frontier.append(new)
+            if len(frontier) > 64:
+                frontier.pop(0)
+    return np.array(sorted(seen), dtype=np.int64)
+
+
+def all_strings(norb, n_elec):
+    """Every ``norb``-bit string with ``n_elec`` bits set, ascending."""
+    import itertools
+
+    import numpy as np
+
+    return np.array(sorted(sum(1 << p for p in occ)
+                           for occ in itertools.combinations(range(norb), n_elec)))
+
+
+def host_f64_energy(ham, vec) -> float:
+    """True f64 Rayleigh quotient <c|H|c>/<c|c> in NumPy from the operator's
+    own tables (as ``bench.py``'s ``_host_f64_energy``)."""
+    import numpy as np
+
+    m, n = ham.shape
+    c = np.asarray(vec, np.float64).reshape(m, n)
+    c = c / np.linalg.norm(c)
+    src_a = ham.src_a.cpu().numpy()
+    sign_a = ham.sign_a.cpu().numpy().astype(np.float64)
+    src_b = ham.src_b.cpu().numpy()
+    sign_b = ham.sign_b.cpu().numpy().astype(np.float64)
+    eri_t = ham.eri_t.cpu().numpy().astype(np.float64)
+    npair = eri_t.shape[0]
+    d_a = (sign_a[:, :, None] * c[src_a]).reshape(npair, -1)
+    d_b = np.swapaxes(np.take(c, src_b, axis=1), 0, 1) * sign_b[:, None, :]
+    pab = d_a @ d_b.reshape(npair, -1).T
+    del d_a, d_b
+    e = float(np.sum(eri_t * pab.T))
+    gram_r = c @ c.T
+    gram_c = c.T @ c
+    idx_a = ham.nbr_idx_a.cpu().numpy()
+    val_a = ham.nbr_val_a.cpu().numpy().astype(np.float64)
+    e += float(np.sum(val_a * gram_r[idx_a, np.arange(m)[:, None]]))
+    idx_b = ham.nbr_idx_b.cpu().numpy()
+    val_b = ham.nbr_val_b.cpu().numpy().astype(np.float64)
+    e += float(np.sum(val_b * gram_c[idx_b, np.arange(n)[:, None]]))
+    return e
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+
+    # -- 1. device ---------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)", flush=True)
+
+    sys.path.insert(0, ROOT)
+    try:
+        from sqd_tpu_torch import build, native
+    except ImportError as exc:
+        fail(f"the sqd_tpu_torch package is not beside this script ({exc})")
+    from sqd_tpu_torch.fermion import solve_sci
+    from sqd_tpu_torch.models.fcidump import read_fcidump
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops.davidson import davidson_ground_state, davidson_initial_guess
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian, sci_matvec_flat
+
+    # -- 2. build ----------------------------------------------------------
+    native.load()
+    cross_spin._kernel_library()
+    print(
+        f"build: g++ sqdcore {build.build_seconds['sqdcore']:.2f} s, "
+        f"nvcc cross_spin_matvec (sm_90a) {build.build_seconds['cross_spin_matvec']:.2f} s",
+        flush=True,
+    )
+
+    # -- 3. kernel vs plain ------------------------------------------------
+    dump = read_fcidump(DATA_STEM + ".fcidump")
+    with open(DATA_STEM + ".json") as f:
+        recorded = json.load(f)
+    h1, eri, ecore = dump["h1e"], dump["eri"], dump["ecore"]
+    norb, nelec = 16, (5, 5)
+    strs_a = excitation_strings(1000, norb, nelec[0], 1)
+    strs_b = excitation_strings(1000, norb, nelec[1], 2)
+    pa, pb = bitpack.pack_ints(strs_a, norb), bitpack.pack_ints(strs_b, norb)
+    ham64 = build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=dev, pad_to=(1024, 1024))
+    ham32 = ham64.astype(torch.float32)
+    rng = np.random.default_rng(0)
+    small_a = pa[np.sort(rng.choice(1000, 37, replace=False))]
+    small_b = pb[np.sort(rng.choice(1000, 45, replace=False))]
+    cases = {
+        "headline": ham32,
+        "ragged": build_sci_hamiltonian(
+            small_a, small_b, h1, eri, norb, nelec, device=dev, dtype=torch.float32),
+        "spin_penalty": build_sci_hamiltonian(
+            small_a, small_b, h1, eri, norb, nelec, device=dev, dtype=torch.float32,
+            spin_shift=0.35, spin_target=2.0, pad_to=(40, 48)),
+        # every beta string of the sector (4368, padded to 4480): three k tiles
+        "wide": build_sci_hamiltonian(
+            small_a, bitpack.pack_ints(all_strings(norb, nelec[1]), norb), h1, eri, norb, nelec,
+            device=dev, dtype=torch.float32),
+    }
+    max_err = 0.0
+    for name, ham in cases.items():
+        ops = ham.cross_spin_operands()
+        c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=dev)
+        out = cross_spin.cross_spin_matvec(c, ops)
+        torch.cuda.synchronize()
+        ref = cross_spin.cross_spin_plain(c, ops)
+        err = float((out - ref).abs().max())
+        bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
+        finite = bool(torch.isfinite(out).all())
+        print(f"kernel vs plain [{name}] shape {tuple(c.shape)} npair {ops.eri.shape[0]} "
+              f"ka {ops.ka_pq.shape[1]}: max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
+        if not finite or err > bound:
+            fail(f"cross_spin_matvec disagrees with its plain version on {name}")
+        max_err = max(max_err, err)
+
+    ops = ham32.cross_spin_operands()
+    c = torch.as_tensor(rng.normal(size=ham32.shape), dtype=torch.float32, device=dev)
+
+    def event_ms(fn, calls=10) -> float:
+        """Per-call device time of ``calls`` back-to-back calls between two events."""
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / calls
+
+    def run_kernel():
+        cross_spin.cross_spin_matvec(c, ops)
+
+    def run_plain():
+        cross_spin.cross_spin_plain(c, ops)
+
+    run_kernel(), run_plain()  # warm
+    kernel_ms, plain_ms = [], []
+    for _ in range(10):  # in turns: plain, kernel, kernel, plain
+        plain_ms.append(event_ms(run_plain))
+        kernel_ms.append(event_ms(run_kernel))
+        kernel_ms.append(event_ms(run_kernel))
+        plain_ms.append(event_ms(run_plain))
+    t_kernel, t_plain = float(np.median(kernel_ms)), float(np.median(plain_ms))
+    print(f"timing at {tuple(c.shape)}, npair 256 ({smi}): kernel {t_kernel:.3f} ms, "
+          f"plain {t_plain:.3f} ms (per call: medians of 20 rounds of 10 calls, CUDA events)",
+          flush=True)
+
+    # -- 4. Davidson on the headline operator --------------------------------
+    hd32 = ham32.hdiag.reshape(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v0 = davidson_initial_guess(hd32, torch.float32)
+    res = davidson_ground_state(
+        sci_matvec_flat, ham32, hd32, v0, tol=1e-3, max_subspace=24, max_iterations=200)
+    torch.cuda.synchronize()
+    t_dav = time.perf_counter() - t0
+    print(f"davidson f32: {res.iterations} iterations, residual {res.residual_norm:.3e}, "
+          f"theta {res.theta + ecore:.10f} Ha, {t_dav:.3f} s", flush=True)
+    if not res.converged:
+        fail("the f32 Davidson did not converge on the headline operator")
+
+    # -- 5. the slice: solve_sci on the headline problem ---------------------
+    cross_spin.cross_spin_matvec.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = solve_sci((strs_a, strs_b), h1, eri, norb, nelec, device="cuda")
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = cross_spin.cross_spin_matvec.launches
+    amps = result.sci_state.amplitudes
+    vec = np.zeros(ham64.shape)
+    vec[: amps.shape[0], : amps.shape[1]] = amps
+    e_host = host_f64_energy(ham64, vec)
+    occ_a, occ_b = result.orbital_occupancies
+    print(f"solve_sci: energy {result.energy + ecore:.12f} Ha, kernel launches {launches}, "
+          f"{t_solve:.3f} s; |E - host f64| {abs(result.energy - e_host):.3e}, "
+          f"|E - sqd_tpu| {abs(result.energy - recorded['energy']):.3e}", flush=True)
+    checks = {
+        "kernel launched during the solve": launches > 0,
+        "amplitudes (1000, 1000) and finite": amps.shape == (1000, 1000)
+        and bool(np.isfinite(amps).all()),
+        "occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8 and abs(occ_b.sum() - 5) < 1e-8,
+        "rdm1/rdm2 finite": bool(np.isfinite(result.rdm1).all() and np.isfinite(result.rdm2).all()),
+        "energy vs host f64": abs(result.energy - e_host) < TOL_ENERGY,
+        "energy vs sqd_tpu": abs(result.energy - recorded["energy"]) < TOL_ENERGY,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(what)
+
+    print(json.dumps({"kernels": [{
+        "name": "cross_spin_matvec",
+        "route": "cuda",
+        "source": "sqd_tpu_torch/csrc/cross_spin_matvec.cu",
+        "replaces": "sqd_tpu/ops/pallas_matvec.py:167",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": t_kernel,
+        "plain_ms": t_plain,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,22 @@
+# (C) 2026. Licensed under the Apache License, Version 2.0.
+"""sqd_tpu_torch — the PyTorch and CUDA port of ``sqd_tpu`` for NVIDIA Hopper.
+
+The JAX package ``sqd_tpu`` stays the reference; this package holds the
+ported slice, module for module under the same names:
+
+* :mod:`sqd_tpu_torch.fermion` — ``solve_sci``, the fixed-subspace SCI solve.
+* :mod:`sqd_tpu_torch.ops.hamiltonian` — the projected operator and its matvec.
+* :mod:`sqd_tpu_torch.ops.cross_spin` — the opposite-spin channel: a CUDA
+  kernel for tensors on the card, its plain PyTorch version for the CPU.
+* :mod:`sqd_tpu_torch.ops.davidson` — the Davidson ground-state solver.
+* :mod:`sqd_tpu_torch.ops.rdm` / :mod:`sqd_tpu_torch.ops.linktab` — RDMs.
+* :mod:`sqd_tpu_torch.native` — the C++ host table kernels of
+  ``sqd_tpu/native/sqdcore.cpp``, compiled by path and bound with ctypes.
+* :mod:`sqd_tpu_torch.convert` — an ``sqd_tpu`` operator's fields as the
+  port's operator.
+
+Nothing here imports JAX or ``sqd_tpu``.  Every public entry point takes an
+explicit ``device``.
+"""
+
+__version__ = "0.1.0"

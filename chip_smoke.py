@@ -9,13 +9,18 @@ Run from the repository root with no arguments::
 Phases, each printing one line; any failure exits non-zero:
 
 1. device — needs CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build — compiles the native host library (g++) and the cross-spin CUDA
-   kernel (nvcc, sm_90a) from the sources in the checkout;
+2. build — compiles the native host library (g++, ``csrc/sqdcore.cpp``) and
+   the cross-spin CUDA kernel (nvcc, sm_90a, ``csrc/cross_spin_matvec.cu``)
+   from the sources in the checkout, both at once;
 3. kernel vs plain — the kernel against its plain PyTorch version on the
    headline operator (M = N = 1024, npair = 256), a ragged small operator, a
-   spin-penalty operator and a wide one (N = 4480: several shared-memory
-   tiles), within ``1e-5 * max(|plain|, 1)``; median times of both at the
-   headline shape from CUDA events;
+   spin-penalty operator, a wide one (N = 4480: several shared-memory k
+   tiles), a sparse one (padded far past its strings: most rows and columns
+   have no valid pair) and the headline with small tiles forced on both the
+   k and the rs axis, within ``1e-5 * max(|plain|, 1)``; median times of
+   both at the headline shape from CUDA events, the kernel's bound (the
+   larger of its FLOPs at the f32 rate and its bytes at the HBM rate,
+   counted from the operands) and one f32 matvec's time;
 4. Davidson — the f32 solver on the headline operator (``bench.py``'s
    settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
 5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
@@ -36,11 +41,15 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
 TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
 TOL_ENERGY = 1e-7  # Ha
+# NVIDIA H100 SXM data sheet, dense, at the 700 W limit
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12  # bytes per second
 
 
 def fail(msg: str) -> None:
@@ -140,8 +149,9 @@ def main() -> None:
     from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian, sci_matvec_flat
 
     # -- 2. build ----------------------------------------------------------
-    native.load()
-    cross_spin._kernel_library()
+    with ThreadPoolExecutor(2) as pool:  # g++ and nvcc side by side
+        for job in [pool.submit(native.load), pool.submit(cross_spin._kernel_library)]:
+            job.result()
     print(
         f"build: g++ sqdcore {build.build_seconds['sqdcore']:.2f} s, "
         f"nvcc cross_spin_matvec (sm_90a) {build.build_seconds['cross_spin_matvec']:.2f} s",
@@ -169,25 +179,41 @@ def main() -> None:
         "spin_penalty": build_sci_hamiltonian(
             small_a, small_b, h1, eri, norb, nelec, device=dev, dtype=torch.float32,
             spin_shift=0.35, spin_target=2.0, pad_to=(40, 48)),
-        # every beta string of the sector (4368, padded to 4480): three k tiles
+        # every beta string of the sector (4368, padded to 4480) against the
+        # headline's alpha strings (up to 36 valid pairs): several k tiles
         "wide": build_sci_hamiltonian(
-            small_a, bitpack.pack_ints(all_strings(norb, nelec[1]), norb), h1, eri, norb, nelec,
+            pa, bitpack.pack_ints(all_strings(norb, nelec[1]), norb), h1, eri, norb, nelec,
             device=dev, dtype=torch.float32),
+        # 37 x 45 strings padded to 256 x 512: most rows and columns are empty
+        "sparse": build_sci_hamiltonian(
+            small_a, small_b, h1, eri, norb, nelec, device=dev, dtype=torch.float32,
+            pad_to=(256, 512)),
+        # the headline with 320-column k tiles and 96-row rs tiles
+        "tiled": ham32,
     }
     max_err = 0.0
     for name, ham in cases.items():
         ops = ham.cross_spin_operands()
+        m, n = ham.shape
+        npair = ops.eri.shape[0]
+        tiles = (320, 96) if name == "tiled" else cross_spin.plan(
+            n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
         c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=dev)
-        out = cross_spin.cross_spin_matvec(c, ops)
+        out = cross_spin.cross_spin_matvec(c, ops, tiles=tiles)
         torch.cuda.synchronize()
         ref = cross_spin.cross_spin_plain(c, ops)
         err = float((out - ref).abs().max())
         bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
         finite = bool(torch.isfinite(out).all())
-        print(f"kernel vs plain [{name}] shape {tuple(c.shape)} npair {ops.eri.shape[0]} "
-              f"ka {ops.ka_pq.shape[1]}: max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
+        empty = (int((ops.ka_n == 0).sum()), int((ops.kb_n == 0).sum()))
+        print(f"kernel vs plain [{name}] shape {(m, n)} npair {npair} ka {ops.ka_pq.shape[1]} "
+              f"kb {ops.kb_rs.shape[1]}, empty rows/cols {empty}, tiles (cols, rs) {tiles}: "
+              f"{-(-n // tiles[0])} k x {-(-npair // tiles[1])} rs: "
+              f"max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
         if not finite or err > bound:
             fail(f"cross_spin_matvec disagrees with its plain version on {name}")
+        if name in ("wide", "tiled") and -(-n // tiles[0]) < 2:
+            fail(f"the {name} case should take several k tiles")
         max_err = max(max_err, err)
 
     ops = ham32.cross_spin_operands()
@@ -217,9 +243,24 @@ def main() -> None:
         kernel_ms.append(event_ms(run_kernel))
         plain_ms.append(event_ms(run_plain))
     t_kernel, t_plain = float(np.median(kernel_ms)), float(np.median(plain_ms))
-    print(f"timing at {tuple(c.shape)}, npair 256 ({smi}): kernel {t_kernel:.3f} ms, "
-          f"plain {t_plain:.3f} ms (per call: medians of 20 rounds of 10 calls, CUDA events)",
+    print(f"timing at {tuple(c.shape)}, npair 256 ({smi}): kernel {t_kernel:.4f} ms, "
+          f"plain {t_plain:.4f} ms (per call: medians of 20 rounds of 10 calls, CUDA events)",
           flush=True)
+    # the least time for the same work: every valid (alpha pair, beta pair)
+    # couple is one FMA; every input is read once and the output written once
+    flops = 2.0 * float(ops.ka_n.sum()) * float(ops.kb_n.sum())
+    moved = [c, c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
+             ops.kb_n, ops.kb_rs, ops.kb_src, ops.kb_sgn, ops.eri]
+    nbytes = float(sum(t.numel() * t.element_size() for t in moved))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    print(f"bound at the headline: {flops / 1e9:.4f} GFLOP at 67 TFLOP/s = {t_ops:.5f} ms, "
+          f"{nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms "
+          f"by {bound_by}; kernel at {bound_ms / t_kernel:.2%} of it "
+          f"({flops / t_kernel / 1e9:.3f} TFLOP/s)", flush=True)
+    matvec_ms = [event_ms(lambda: ham32.matvec(c)) for _ in range(20)]
+    print(f"f32 matvec at {tuple(c.shape)}: {float(np.median(matvec_ms)):.4f} ms "
+          f"(medians of 20 rounds of 10 calls, CUDA events)", flush=True)
 
     # -- 4. Davidson on the headline operator --------------------------------
     hd32 = ham32.hdiag.reshape(-1)
@@ -273,6 +314,9 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": t_kernel,
         "plain_ms": t_plain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes this contraction
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -10,8 +10,8 @@ ported slice, module for module under the same names:
   kernel for tensors on the card, its plain PyTorch version for the CPU.
 * :mod:`sqd_tpu_torch.ops.davidson` — the Davidson ground-state solver.
 * :mod:`sqd_tpu_torch.ops.rdm` / :mod:`sqd_tpu_torch.ops.linktab` — RDMs.
-* :mod:`sqd_tpu_torch.native` — the C++ host table kernels of
-  ``sqd_tpu/native/sqdcore.cpp``, compiled by path and bound with ctypes.
+* :mod:`sqd_tpu_torch.native` — the C++ host table kernels
+  (``csrc/sqdcore.cpp``, copied from ``sqd_tpu``), bound with ctypes.
 * :mod:`sqd_tpu_torch.convert` — an ``sqd_tpu`` operator's fields as the
   port's operator.
 

@@ -1,10 +1,11 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Native (C++) host table kernels, bound with ctypes.
 
-The source is ``sqd_tpu``'s own ``sqd_tpu/native/sqdcore.cpp``, compiled by
-path with ``g++`` into this package's build directory at first use (see
-:mod:`sqd_tpu_torch.build`); ``sqd_tpu`` itself is never imported.  Unlike
-``sqd_tpu.native`` there is no NumPy fallback: a failed build raises.
+The source is the package's own ``csrc/sqdcore.cpp``, a copy of the functions
+of ``sqd_tpu/native/sqdcore.cpp`` that are bound here, compiled with ``g++``
+into this package's build directory at first use (see
+:mod:`sqd_tpu_torch.build`).  Unlike ``sqd_tpu.native`` there is no NumPy
+fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -19,10 +20,7 @@ from .build import load_library
 
 __all__ = ["desdes_unique", "gather_tables", "popcount_rows", "samespin_tables", "load"]
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "sqd_tpu", "native", "sqdcore.cpp",
-)
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "sqdcore.cpp")
 COMMAND = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")

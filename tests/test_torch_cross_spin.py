@@ -5,12 +5,18 @@ The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain version there).  Here the plain PyTorch version is held
 against the Pallas kernel in interpret mode and against ``sqd_tpu``'s
 ``_matvec_full`` minus its same-spin channels, and a NumPy emulation of the
-kernel's compacted-pair arithmetic is held against both.  Tolerance:
+kernel's arithmetic (compacted alpha and beta pairs, tiled runs) is held
+against both.  The compacted operands, the kernel's shared-memory plan and
+the port's own native build are checked too.  Tolerance:
 ``max|diff| <= 1e-5 * max(|ref|, 1)`` in f32 (sums in another order), as
 ``tests/test_pallas_matvec.py``.
 """
 
 import dataclasses
+import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -115,24 +121,93 @@ def test_f32_matvec_matches_full(problem, pad_to, spin):
     _close(out, ham_j._matvec_full(jnp.asarray(c)))
 
 
-def test_kernel_arithmetic_emulated(problem):
-    """The kernel's formulation — per alpha row, only its compacted valid pairs
-    feed g, then each output column picks g[rs, src_b[rs, j]] — emulated in
-    NumPy from the wrapper's operands, against ``sqd_tpu``."""
-    ham_j, ham_t, c = _pair(problem, pad_to=(48, 128), spin_shift=0.35, spin_target=2.0)
-    ops = ham_t.cross_spin_operands()
+def _fold_penalty_jax(ham_j):
+    """``sqd_tpu``'s own fold of the penalty's mixed term into ``eri_t``."""
+    npair = NORB * NORB
+    eri = ham_j.eri_t.astype(jnp.float32)
+    if ham_j.spin_shift != 0.0:
+        perm = jnp.asarray(ham_j._qp_perm())
+        eri = eri.at[perm, jnp.arange(npair)].add(jnp.float32(-ham_j.spin_shift))
+    return eri
+
+
+def _kernel_runs(ops, tiles):
+    """The entries each (k tile, rs tile) step of the kernel takes.
+
+    A cursor per column walks its sorted entries while the source lies below
+    the k tile's end, as the kernel does; each rs tile of that k tile takes
+    the entries of the run whose pair row it holds.  Returns the boolean
+    ``(N, kb)`` masks, one per step, checked to take every valid entry once.
+    """
+    n, npair = ops.shape[1], ops.eri.shape[0]
+    kp = cross_spin.row_stride(ops.ka_pq.shape[1])
+    tile_cols, tile_rs = cross_spin.plan(n, npair, kp) if tiles is None else tiles
+    kb_n, kb_rs, kb_src = (x.numpy() for x in (ops.kb_n, ops.kb_rs, ops.kb_src))
+    t = np.arange(kb_rs.shape[1])[None, :]
+    cur = np.zeros(n, dtype=np.int64)
+    masks = []
+    for k0 in range(0, n, tile_cols):
+        k1 = min(n, k0 + tile_cols)
+        start = cur.copy()
+        for j in range(n):
+            while cur[j] < kb_n[j] and kb_src[j, cur[j]] < k1:
+                cur[j] += 1
+        run = (t >= start[:, None]) & (t < cur[:, None])
+        assert ((kb_src[run] >= k0) & (kb_src[run] < k1)).all()
+        for r0 in range(0, npair, tile_rs):
+            masks.append(run & (kb_rs >= r0) & (kb_rs < min(npair, r0 + tile_rs)))
+    np.testing.assert_array_equal(sum(m.astype(int) for m in masks), t < kb_n[:, None])
+    return masks
+
+
+def _emulate_kernel(ops, c, tiles):
+    """The kernel's arithmetic in NumPy (f64), from the wrapper's operands:
+    per alpha row the staged ``A_i[rs, l]`` and gathered rows of ``c``, per
+    column the dot products of its entries, summed over the tiled runs."""
+    masks = _kernel_runs(ops, tiles)
     eri = ops.eri.numpy().astype(np.float64)
-    src_b, sign_b = ops.src_b32.numpy(), ops.sign_b8.numpy()
-    rs = np.arange(eri.shape[0])[:, None]
+    kb_rs, kb_src, kb_sgn = (x.numpy() for x in (ops.kb_rs, ops.kb_src, ops.kb_sgn))
     out = np.zeros(c.shape)
     for i in range(c.shape[0]):
-        k = int(ops.ka_n[i])
-        pq, src, sgn = (x[i, :k].numpy() for x in (ops.ka_pq, ops.ka_src, ops.ka_sgn))
-        g = (eri[:, pq] * sgn) @ c[src].astype(np.float64)
-        out[i] = np.sum(sign_b * g[rs, src_b], axis=0)
+        nv = int(ops.ka_n[i])
+        if nv == 0:
+            continue
+        pq, src, sgn = (x[i, :nv].numpy() for x in (ops.ka_pq, ops.ka_src, ops.ka_sgn))
+        a = eri[:, pq] * sgn  # (npair, nv)
+        g = c[src].astype(np.float64).T  # (N, nv): c[src_l, k]
+        dots = kb_sgn * np.einsum("jtl,jtl->jt", a[kb_rs], g[kb_src])
+        out[i] = sum(np.where(m, dots, 0.0).sum(axis=1) for m in masks)
+    return out
+
+
+@pytest.mark.parametrize(
+    "tiles", [None, (16, None), (16, 24)], ids=["whole", "k_tiled", "k_and_rs_tiled"])
+@pytest.mark.parametrize(
+    "pad_to, spin",
+    [((48, 128), (0.35, 2.0)), (None, (0.0, 0.0)), ((64, 256), (0.0, 0.0))],
+    ids=["spin_penalty", "ragged", "padded"],
+)
+def test_kernel_arithmetic_emulated(problem, pad_to, spin, tiles):
+    """The kernel's formulation, emulated with its k tiling (and rs tiling)
+    from the wrapper's operands, against ``sqd_tpu``: ``_matvec_full`` minus
+    its same-spin channels and, where its shape gate admits the operator, the
+    Pallas kernel in interpret mode.  ``k_tiled`` splits N = 40 into 3 runs,
+    N = 128 into 8 and N = 256 into 16; ``k_and_rs_tiled`` also splits the
+    64 pair rows into 3 tiles."""
+    ham_j, ham_t, c = _pair(problem, pad_to=pad_to, spin_shift=spin[0], spin_target=spin[1])
+    ops = ham_t.cross_spin_operands()
+    if tiles is not None and tiles[1] is None:
+        tiles = (tiles[0], ops.eri.shape[0])
+    out = _emulate_kernel(ops, c, tiles)
     ham_nop = dataclasses.replace(ham_j, spin_shift=0.0)
-    ref = _jax_cross_spin(ham_nop, c) - _s2_mixed(ham_j, c)
-    _close(out, ref)
+    _close(out, _jax_cross_spin(ham_nop, c) - _s2_mixed(ham_j, c))
+    if pad_to is not None:
+        ka = -(-(3 * (NORB - 3 + 1)) // 8) * 8
+        ref = pallas_cross_spin(
+            jnp.asarray(c), ham_j.src_a, ham_j.sign_a, ham_j.src_b, ham_j.sign_b,
+            _fold_penalty_jax(ham_j), ka=ka, interpret=True,
+        )
+        _close(out, ref)
 
 
 def _s2_mixed(ham_j, c):
@@ -159,6 +234,105 @@ def test_compacted_pairs(problem):
         np.testing.assert_array_equal(ops.ka_src[i, :k].numpy(), np.asarray(ham_j.src_a)[pq, i])
         np.testing.assert_array_equal(ops.ka_sgn[i, :k].numpy(), sign_a[pq, i])
         assert not ops.ka_sgn[i, k:].any()
+
+
+@pytest.mark.parametrize("pad_to", [(48, 128), None], ids=["padded", "ragged"])
+def test_compacted_beta_pairs(problem, pad_to):
+    """The beta side: per column its valid pairs, sorted by source (then by
+    pair), zero past the count, stored entry-major."""
+    ham_j, ham_t, _ = _pair(problem, pad_to=pad_to)
+    ops = ham_t.cross_spin_operands()
+    src_b, sign_b = np.asarray(ham_j.src_b), np.asarray(ham_j.sign_b)
+    valid = sign_b != 0
+    np.testing.assert_array_equal(ops.kb_n.numpy(), valid.sum(axis=0))
+    assert ops.kb_rs.shape == (sign_b.shape[1], valid.sum(axis=0).max())
+    for t in (ops.kb_rs, ops.kb_src, ops.kb_sgn):
+        assert t.T.is_contiguous()
+    assert ops.kb_rs.dtype == ops.kb_src.dtype == torch.int32
+    assert ops.kb_sgn.dtype == torch.float32
+    for j in range(sign_b.shape[1]):
+        k = int(ops.kb_n[j])
+        rs = np.flatnonzero(valid[:, j])
+        rs = rs[np.argsort(src_b[rs, j], kind="stable")]
+        np.testing.assert_array_equal(ops.kb_rs[j, :k].numpy(), rs)
+        np.testing.assert_array_equal(ops.kb_src[j, :k].numpy(), src_b[rs, j])
+        np.testing.assert_array_equal(ops.kb_sgn[j, :k].numpy(), sign_b[rs, j])
+        assert not ops.kb_rs[j, k:].any() and not ops.kb_src[j, k:].any()
+        assert not ops.kb_sgn[j, k:].any()
+
+
+@pytest.mark.parametrize(
+    "n, npair, ka, expect",
+    [(1024, 256, 36, (1024, 256)), (4480, 256, 36, (1355, 256)), (1024, 676, 182, (153, 153))],
+    ids=["headline", "wide", "rs_tiled"],
+)
+def test_kernel_plan(n, npair, ka, expect):
+    """The shared-memory plan: the headline stages all of A_i and all 1024
+    columns (184,752 bytes with the pair lists); N = 4480 takes 4 k tiles; npair = 676 with 182
+    valid pairs per row (26 orbitals, 13 electrons) tiles the rs axis."""
+    kp = cross_spin.row_stride(ka)
+    assert kp >= ka and kp % 4 == 0 and (kp // 4) % 2 == 1
+    tile_cols, tile_rs = cross_spin.plan(n, npair, kp)
+    assert (tile_cols, tile_rs) == expect
+    assert 4 * kp * (tile_cols + tile_rs + 3) <= cross_spin.SMEM_BYTES
+    if n == 1024 and npair == 256:
+        assert 4 * kp * (tile_cols + tile_rs + 3) == 184_752
+    for k in range(1, 200):
+        q = cross_spin.row_stride(k) // 4
+        assert q % 2 == 1 and 4 * q >= k and 4 * q - k < 8
+
+
+_BUILD_ALONE = """
+import os, sys
+import numpy as np
+from sqd_tpu_torch import native
+here = os.path.dirname(os.path.abspath(__file__))
+assert native.SOURCE.startswith(here), native.SOURCE
+d = np.load(os.path.join(here, "inputs.npz"))
+src, sign = native.gather_tables(d["packed"], int(d["norb"]))
+idx, val = native.samespin_tables(d["packed"], d["h1"], d["eri"], int(d["norb"]), int(d["nelec"]))
+built = os.listdir(os.path.join(here, "sqd_tpu_torch", "_build"))
+np.savez(os.path.join(here, "tables.npz"), src=src, sign=sign, idx=idx, val=val)
+print(native.SOURCE, built)
+"""
+
+
+def test_native_builds_alone(tmp_path):
+    """The port's package alone, with no ``sqd_tpu`` beside it, builds its
+    native library from its own ``csrc/sqdcore.cpp``, and its tables equal
+    ``sqd_tpu.native``'s bit for bit."""
+    from sqd_tpu import native as jax_native
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(
+        os.path.join(root, "sqd_tpu_torch"), tmp_path / "sqd_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    norb, nelec = 10, 4
+    rng = np.random.default_rng(7)
+    strs = np.sort(rng.choice(dense_fci.all_hamming_strings(norb, nelec), 90, replace=False))
+    packed = bitpack.pack_ints(strs, norb)
+    h1, eri = _sym2(rng, norb), _sym4(rng, norb)
+    np.savez(tmp_path / "inputs.npz", packed=packed, h1=h1, eri=eri, norb=norb, nelec=nelec)
+    (tmp_path / "run.py").write_text(_BUILD_ALONE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "run.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    source, built = proc.stdout.strip().split(" ", 1)
+    assert source == str(tmp_path / "sqd_tpu_torch" / "csrc" / "sqdcore.cpp")
+    assert "libsqdcore_" in built
+    assert not (tmp_path / "sqd_tpu").exists()
+    got = np.load(tmp_path / "tables.npz")
+    for name, ref in zip(("src", "sign"), jax_native.gather_tables(packed, norb)):
+        assert got[name].dtype == ref.dtype
+        np.testing.assert_array_equal(got[name], ref)
+    ref = jax_native.samespin_tables(packed, h1, eri, norb, nelec, algo="enum")
+    for name, r in zip(("idx", "val"), ref):
+        assert got[name].dtype == r.dtype
+        np.testing.assert_array_equal(got[name], r)
 
 
 def test_wrapper_dispatch_on_cpu(problem):

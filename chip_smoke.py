@@ -28,7 +28,17 @@ Phases, each printing one line; any failure exits non-zero:
    the committed FCIDUMP); the kernel must be launched during the solve, and
    the energy must lie within 1e-7 Ha of a host-f64 Rayleigh quotient of the
    returned amplitudes and of the ``sqd_tpu`` energy recorded beside the
-   FCIDUMP.
+   FCIDUMP;
+6. SQD loop — ``sqd_tpu_torch.fermion.diagonalize_fermionic_hamiltonian`` on
+   the same integrals with 200,000 shots (:func:`loop_shots`) and
+   ``LOOP_SETTINGS`` (3 iterations of 3 batches of ~950 x 950 strings, the
+   default solver with a fresh ``TableCache``).  Iteration 0 must give the
+   strings and, within 1e-7 Ha, the energies that ``sqd_tpu`` recorded
+   (``tools/make_sqd_loop_data.py``); the best energy must lie within
+   1e-7 Ha of a host-f64 Rayleigh quotient of its amplitudes; every batch
+   solve must run in f32 (above 200k determinants) and launch the kernel;
+   the table cache must have reused rows.  Prints each iteration's seconds
+   in recovery, subsampling, table builds and solves.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -47,6 +57,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
 TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
 TOL_ENERGY = 1e-7  # Ha
+# phase 6: the SQD loop, and the sqd_tpu record of its iteration 0
+LOOP_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "sqd_loop_n2_631g.json")
+LOOP_SHOTS = 200_000
+LOOP_SETTINGS = {
+    "samples_per_batch": 3000, "num_batches": 3, "max_iterations": 3, "max_dim": 1000,
+    "symmetrize_spin": False, "seed": 11,
+}
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -90,6 +107,36 @@ def all_strings(norb, n_elec):
                            for occ in itertools.combinations(range(norb), n_elec)))
 
 
+def loop_shots(n_shots=LOOP_SHOTS, seed=5):
+    """Phase 6's samples: an ``(n_shots, 32)`` bool matrix, rows ``[b_15..b_0, a_15..a_0]``.
+
+    80 % are (alpha, beta) pairs drawn uniformly from the headline string sets
+    (samples concentrated near the HF determinant), 20 % uniform random bits
+    that configuration recovery has to repair.
+    """
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    strs_a = excitation_strings(1000, 16, 5, 1)
+    strs_b = excitation_strings(1000, 16, 5, 2)
+    n_pairs = n_shots * 4 // 5
+    pick_a = strs_a[rng.integers(0, len(strs_a), n_pairs)]
+    pick_b = strs_b[rng.integers(0, len(strs_b), n_pairs)]
+    shifts = np.arange(15, -1, -1)
+    pairs = np.hstack([(pick_b[:, None] >> shifts) & 1, (pick_a[:, None] >> shifts) & 1])
+    noise = rng.integers(0, 2, size=(n_shots - n_pairs, 32))
+    return np.vstack([pairs, noise]).astype(bool)
+
+
+def strings_digest(strs) -> str:
+    """sha256 of a CI-string array as int64 bytes (the loop's sorted batch strings)."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(strs, dtype=np.int64).tobytes()).hexdigest()
+
+
 def host_f64_energy(ham, vec) -> float:
     """True f64 Rayleigh quotient <c|H|c>/<c|c> in NumPy from the operator's
     own tables (as ``bench.py``'s ``_host_f64_energy``)."""
@@ -118,6 +165,143 @@ def host_f64_energy(ham, vec) -> float:
     val_b = ham.nbr_val_b.cpu().numpy().astype(np.float64)
     e += float(np.sum(val_b * gram_c[idx_b, np.arange(n)[:, None]]))
     return e
+
+
+STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
+         "table builds + upload", "solves (tables included)")
+
+
+def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
+    """Phase 6: the SQD loop at full width.  Returns the kernel's launches in it."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import configuration_recovery, fermion
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+    from sqd_tpu_torch.ops.table_cache import TableCache
+    from sqd_tpu_torch.primitives import BitArray
+
+    with open(LOOP_DATA) as f:
+        recorded = json.load(f)
+    norb, nelec = 16, (5, 5)
+    shots = BitArray.from_bool_array(loop_shots())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # Seconds per step, one dict per iteration, from wrappers around the
+    # functions the loop calls (each synchronises the card before and after).
+    spans: list[dict] = [{}]
+    solves = []  # (m, n, kernel launches) of each batch solve
+    originals = []
+
+    def wrap(module, name, make):
+        fn = getattr(module, name)
+        originals.append((module, name, fn))
+        setattr(module, name, make(fn))
+
+    def timed(key):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                sync()
+                spans[-1][key] = spans[-1].get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return wrapper
+        return make
+
+    def counted(fn):
+        def wrapper(ci_strings, *args, **kwargs):
+            before = cross_spin.cross_spin_matvec.launches
+            out = fn(ci_strings, *args, **kwargs)
+            solves.append((len(ci_strings[0]), len(ci_strings[1]),
+                           cross_spin.cross_spin_matvec.launches - before))
+            return out
+        return wrapper
+
+    for module, name, key in (
+        (fermion, "postselect_by_hamming_right_and_left", "postselect"),
+        (fermion, "recover_configurations", "recovery"),
+        (configuration_recovery, "_gumbel_noise", "recovery on the device"),
+        (configuration_recovery, "_recover_kernel", "recovery on the device"),
+        (fermion, "subsample", "subsampling"),
+        (fermion, "build_sci_hamiltonian", "table builds + upload"),
+        (fermion, "solve_sci", "solves (tables included)"),
+    ):
+        wrap(module, name, timed(key))
+    wrap(fermion, "solve_sci", counted)
+
+    history = []
+
+    def callback(results):
+        history.append(results)
+        spans.append({})
+
+    cache = TableCache()
+    cross_spin.cross_spin_matvec.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    best = fermion.diagonalize_fermionic_hamiltonian(
+        h1, eri, shots, norb=norb, nelec=nelec, callback=callback,
+        solver_options={"table_cache": cache}, device=dev, **LOOP_SETTINGS,
+    )
+    sync()
+    t_loop = time.perf_counter() - t0
+    launches = cross_spin.cross_spin_matvec.launches
+    for module, name, fn in reversed(originals):
+        setattr(module, name, fn)
+    spans.pop()  # opened after the last iteration
+
+    for i, (results, span) in enumerate(zip(history, spans)):
+        steps = ", ".join(f"{k} {span[k]:.4f} s" for k in STEPS if k in span)
+        print(f"sqd loop iteration {i}: {steps}; subspaces "
+              f"{[r.sci_state.amplitudes.shape for r in results]}; energies "
+              f"{[round(r.energy + ecore, 10) for r in results]} Ha", flush=True)
+
+    it0 = history[0]
+    it0_strings = [
+        (strings_digest(r.sci_state.ci_strs_a), strings_digest(r.sci_state.ci_strs_b))
+        == (b["sha256_alpha"], b["sha256_beta"])
+        for r, b in zip(it0, recorded["batches"])
+    ]
+    it0_diff = max(abs(r.energy - b["energy"]) for r, b in zip(it0, recorded["batches"]))
+    state = best.sci_state
+    ham = build_sci_hamiltonian(bitpack.pack_ints(state.ci_strs_a, norb),
+                                bitpack.pack_ints(state.ci_strs_b, norb),
+                                h1, eri, norb, nelec, device=dev)
+    vec = np.zeros(ham.shape)
+    vec[: state.amplitudes.shape[0], : state.amplitudes.shape[1]] = state.amplitudes
+    e_host = host_f64_energy(ham, vec)
+    occ_a, occ_b = best.orbital_occupancies
+    strings_solved = sum(m + n for m, n, _ in solves)
+    print(f"sqd loop: {len(history)} iterations, {len(solves)} batch solves in "
+          f"{t_loop:.3f} s ({smi}); best energy {best.energy + ecore:.12f} Ha, "
+          f"|E - host f64| {abs(best.energy - e_host):.3e}; iteration 0 vs sqd_tpu: strings "
+          f"{it0_strings}, max |dE| {it0_diff:.3e}; kernel launches per solve "
+          f"{[k for _, _, k in solves]} ({launches} in all); table cache: "
+          f"{cache.native_rows_computed} native rows for {strings_solved} strings solved "
+          f"(a direct build computes {2 * strings_solved})", flush=True)
+    checks = {
+        "iteration 0 gives sqd_tpu's strings": len(it0) == len(recorded["batches"])
+        and all(it0_strings),
+        "iteration 0 energies within 1e-7 Ha of sqd_tpu's": it0_diff < TOL_ENERGY,
+        "best energy vs host f64": abs(best.energy - e_host) < TOL_ENERGY,
+        "best occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8
+        and abs(occ_b.sum() - 5) < 1e-8,
+        "every batch solve above 200k determinants (f32)": all(
+            m * n > 200_000 for m, n, _ in solves),
+        "the kernel launched in every batch solve": len(solves) == sum(map(len, history))
+        and all(k >= 1 for _, _, k in solves),
+        "the table cache reused rows": cache.native_rows_computed < strings_solved,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"sqd loop: {what}")
+    return launches
 
 
 def main() -> None:
@@ -305,12 +489,15 @@ def main() -> None:
         if not ok:
             fail(what)
 
+    loop_launches = sqd_loop_phase(dev, smi, h1, eri, ecore)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
         "source": "sqd_tpu_torch/csrc/cross_spin_matvec.cu",
         "replaces": "sqd_tpu/ops/pallas_matvec.py:167",
         "launches": launches,
+        "launches_sqd_loop": loop_launches,
         "max_abs_err": max_err,
         "ms": t_kernel,
         "plain_ms": t_plain,

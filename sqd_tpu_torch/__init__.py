@@ -2,10 +2,20 @@
 """sqd_tpu_torch — the PyTorch and CUDA port of ``sqd_tpu`` for NVIDIA Hopper.
 
 The JAX package ``sqd_tpu`` stays the reference; this package holds the
-ported slice, module for module under the same names:
+ported slices, module for module under the same names:
 
-* :mod:`sqd_tpu_torch.fermion` — ``solve_sci``, the fixed-subspace SCI solve.
-* :mod:`sqd_tpu_torch.ops.hamiltonian` — the projected operator and its matvec.
+* :mod:`sqd_tpu_torch.fermion` — the SQD loop
+  ``diagonalize_fermionic_hamiltonian``, ``solve_sci``, ``solve_sci_batch``
+  and ``solve_fermion``.
+* :mod:`sqd_tpu_torch.configuration_recovery` — the repair of sampled rows,
+  as torch ops on the device.
+* :mod:`sqd_tpu_torch.subsampling` / :mod:`sqd_tpu_torch.ops.sampling` —
+  postselection, host ``subsample`` and device Gumbel-top-k sampling.
+* :mod:`sqd_tpu_torch.counts` / :mod:`sqd_tpu_torch.primitives` — sample
+  ingestion (``BitArray``).
+* :mod:`sqd_tpu_torch.ops.hamiltonian` — the projected operator and its
+  matvec; :mod:`sqd_tpu_torch.ops.table_cache` reuses its per-string table
+  rows across the loop's solves.
 * :mod:`sqd_tpu_torch.ops.cross_spin` — the opposite-spin channel: a CUDA
   kernel for tensors on the card, its plain PyTorch version for the CPU.
 * :mod:`sqd_tpu_torch.ops.davidson` — the Davidson ground-state solver.
@@ -15,8 +25,8 @@ ported slice, module for module under the same names:
 * :mod:`sqd_tpu_torch.convert` — an ``sqd_tpu`` operator's fields as the
   port's operator.
 
-Nothing here imports JAX or ``sqd_tpu``.  Every public entry point takes an
-explicit ``device``.
+Nothing here imports JAX or ``sqd_tpu``.  Every public entry point runs on
+the card (``device="cuda"``) unless the caller passes another device.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,10 @@
 // copied so that the port builds from its own sources.  Bitstrings are packed
 // little-endian uint32 words (word 0 = orbitals 0..31), as in
 // sqd_tpu_torch.ops.bitpack.  The functions are those of sqdcore.cpp, line for
-// line; its connected-membership, table-caching, sparse same-spin, integral
-// and Pauli kernels are left out until a slice of the port needs them.
+// line, including the set-independent value kernels behind the table cache
+// (gather_values, samespin_values); its connected-membership, sparse
+// same-spin, integral and Pauli kernels are left out until a slice of the
+// port needs them.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC sqdcore.cpp -o libsqdcore.so
 
@@ -267,6 +269,143 @@ void samespin_candidates(const uint32_t* strs, int64_t n, int w, int norb,
             }
         }
         for (; c < cand_width; ++c) { idx_row[c] = 0; val_row[c] = 0.0; }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// SET-INDEPENDENT "values" variants for incremental table caching.
+//
+// The per-string halves of the table builds (candidate excited/neighbor
+// STRINGS, fermionic signs, Slater-Condon matrix elements) depend only on
+// the string itself (+ integrals) — never on which other strings are in the
+// set.  Emitting them lets the Python layer cache per-string rows across SQD
+// iterations (where string sets overlap heavily) and redo only the cheap
+// vectorized membership pass against each iteration's sorted set.
+// ---------------------------------------------------------------------------
+
+// Per-(p,q) single-excitation candidate VALUES: for each target string J and
+// pair pq, the source string I = J - p + q (packed) and the parity sign, or
+// sign 0 when the excitation is invalid on J.  Layout: out_val[(pq*n + j)*w],
+// out_sign[pq*n + j].  Diagonal pairs emit I = J with sign = occupancy.
+void gather_values(const uint32_t* strs, int64_t n, int w, int norb,
+                   uint32_t* out_val, int8_t* out_sign) {
+    std::vector<uint32_t> buf(w);
+    for (int p = 0; p < norb; ++p) {
+        for (int q = 0; q < norb; ++q) {
+            int64_t base = (int64_t)(p * norb + q) * n;
+            for (int64_t j = 0; j < n; ++j) {
+                const uint32_t* J = strs + j * w;
+                uint32_t* out = out_val + (base + j) * w;
+                if (p == q) {
+                    std::memcpy(out, J, w * sizeof(uint32_t));
+                    out_sign[base + j] = get_bit(J, p) ? 1 : 0;
+                    continue;
+                }
+                if (!get_bit(J, p) || get_bit(J, q)) {
+                    std::memset(out, 0, w * sizeof(uint32_t));
+                    out_sign[base + j] = 0;
+                    continue;
+                }
+                std::memcpy(buf.data(), J, w * sizeof(uint32_t));
+                flip_bit(buf.data(), p);
+                flip_bit(buf.data(), q);
+                int s1 = popcount_below(buf.data(), w, q);
+                int s2 = popcount_below(buf.data(), w, p) - (q < p ? 1 : 0);
+                std::memcpy(out, buf.data(), w * sizeof(uint32_t));
+                out_sign[base + j] = ((s1 + s2) & 1) ? -1 : 1;
+            }
+        }
+    }
+}
+
+// Same-spin Slater-Condon neighbor VALUES: per row the candidate neighbor
+// strings (packed) and signed matrix elements, membership-free.  Layout per
+// row: [diagonal, singles, doubles] exactly like samespin_candidates; the
+// diagonal slot stores J itself.
+void samespin_values(const uint32_t* strs, int64_t n, int w, int norb,
+                     int nelec, const double* h1, const double* eri,
+                     uint32_t* out_nbr, double* out_val, int64_t cand_width) {
+    const int nv = norb - nelec;
+    const int64_t n4 = (int64_t)norb * norb * norb, n2 = (int64_t)norb * norb;
+    auto E = [&](int a, int b, int c, int d) -> double {
+        return eri[(int64_t)a * n4 + (int64_t)b * n2 + (int64_t)c * norb + d];
+    };
+    std::vector<int> occ(nelec), virt(nv);
+    std::vector<uint32_t> buf(w);
+    for (int64_t i = 0; i < n; ++i) {
+        const uint32_t* J = strs + i * w;
+        uint32_t* nbr_row = out_nbr + i * cand_width * w;
+        double* val_row = out_val + i * cand_width;
+        int oc = 0, vc = 0;
+        for (int t = 0; t < norb; ++t) {
+            if (get_bit(J, t)) { if (oc < nelec) occ[oc] = t; ++oc; }
+            else { if (vc < nv) virt[vc] = t; ++vc; }
+        }
+        if (oc != nelec || vc != nv) {
+            std::memset(nbr_row, 0, cand_width * w * sizeof(uint32_t));
+            for (int64_t c0 = 0; c0 < cand_width; ++c0) val_row[c0] = 0.0;
+            continue;
+        }
+        int64_t c = 0;
+        double diag = 0.0;
+        for (int a = 0; a < oc; ++a) {
+            int p = occ[a];
+            diag += h1[p * norb + p];
+            for (int b = 0; b < oc; ++b) {
+                int q = occ[b];
+                diag += 0.5 * (E(p, p, q, q) - E(p, q, q, p));
+            }
+        }
+        std::memcpy(nbr_row + c * w, J, w * sizeof(uint32_t));
+        val_row[c] = diag;
+        ++c;
+        for (int a = 0; a < oc; ++a) {
+            for (int k = 0; k < vc; ++k, ++c) {
+                int p = occ[a], q = virt[k];
+                std::memcpy(buf.data(), J, w * sizeof(uint32_t));
+                flip_bit(buf.data(), p);
+                flip_bit(buf.data(), q);
+                double mf = h1[p * norb + q];
+                for (int b = 0; b < oc; ++b) {
+                    int kk = occ[b];
+                    if (kk == p) continue;
+                    mf += E(p, q, kk, kk) - E(p, kk, kk, q);
+                }
+                int s1 = popcount_below(buf.data(), w, q);
+                int s2 = popcount_below(buf.data(), w, p) - (q < p ? 1 : 0);
+                std::memcpy(nbr_row + c * w, buf.data(), w * sizeof(uint32_t));
+                val_row[c] = (((s1 + s2) & 1) ? -1.0 : 1.0) * mf;
+            }
+        }
+        for (int a = 0; a < oc; ++a) {
+            for (int b = a + 1; b < oc; ++b) {
+                for (int k = 0; k < vc; ++k) {
+                    for (int l = k + 1; l < vc; ++l, ++c) {
+                        int p = occ[a], r = occ[b], q = virt[k], s = virt[l];
+                        std::memcpy(buf.data(), J, w * sizeof(uint32_t));
+                        flip_bit(buf.data(), p);
+                        flip_bit(buf.data(), r);
+                        flip_bit(buf.data(), q);
+                        flip_bit(buf.data(), s);
+                        std::memcpy(nbr_row + c * w, buf.data(), w * sizeof(uint32_t));
+                        int par = popcount_below(buf.data(), w, q);
+                        flip_bit(buf.data(), q);
+                        par += popcount_below(buf.data(), w, s);
+                        flip_bit(buf.data(), s);
+                        par += popcount_below(buf.data(), w, r);
+                        flip_bit(buf.data(), r);
+                        par += popcount_below(buf.data(), w, p);
+                        double g = (par & 1) ? -1.0 : 1.0;
+                        val_row[c] = 0.5 * g * (E(p, q, r, s) + E(r, s, p, q)
+                                                - E(p, s, r, q) - E(r, q, p, s));
+                    }
+                }
+            }
+        }
+        for (; c < cand_width; ++c) {
+            std::memset(nbr_row + c * w, 0, w * sizeof(uint32_t));
+            val_row[c] = 0.0;
+        }
     }
 }
 

@@ -18,7 +18,17 @@ import numpy as np
 
 from .build import load_library
 
-__all__ = ["desdes_unique", "gather_tables", "popcount_rows", "samespin_tables", "load"]
+__all__ = [
+    "compact_neighbours",
+    "desdes_unique",
+    "gather_tables",
+    "gather_values",
+    "popcount_rows",
+    "samespin_tables",
+    "samespin_values",
+    "samespin_width",
+    "load",
+]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "sqdcore.cpp")
 COMMAND = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
@@ -33,7 +43,7 @@ _i64, _int = ctypes.c_int64, ctypes.c_int
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build (once) and load ``sqdcore``; declare the four bound functions."""
+    """Build (once) and load ``sqdcore``; declare the bound functions."""
     lib = load_library("sqdcore", SOURCE, COMMAND)
     lib.popcount_rows.argtypes = [_u32p, _i64, _int, _i64p]
     lib.popcount_rows.restype = None
@@ -45,6 +55,12 @@ def load() -> ctypes.CDLL:
         _u32p, _i64, _int, _int, _int, _f64p, _f64p, _i32p, _f64p, _i64,
     ]
     lib.samespin_candidates.restype = None
+    lib.gather_values.argtypes = [_u32p, _i64, _int, _int, _u32p, _i8p]
+    lib.gather_values.restype = None
+    lib.samespin_values.argtypes = [
+        _u32p, _i64, _int, _int, _int, _f64p, _f64p, _u32p, _f64p, _i64,
+    ]
+    lib.samespin_values.restype = None
     return lib
 
 
@@ -79,6 +95,48 @@ def gather_tables(strs_packed: np.ndarray, norb: int):
     return src, sign
 
 
+def gather_values(strs_packed: np.ndarray, norb: int):
+    """Set-independent single-excitation candidates of each string.
+
+    ``(vals (norb^2, n, W) uint32, sign (norb^2, n) int8)``: the source string
+    ``I = J - p + q`` for every pair and target ``J``, and its parity (0 where
+    the excitation is invalid on ``J``).  Membership in a string set is
+    resolved by :mod:`sqd_tpu_torch.ops.table_cache`.
+    """
+    strs_packed = np.ascontiguousarray(strs_packed, dtype=np.uint32)
+    n, w = strs_packed.shape
+    vals = np.empty((norb * norb, n, w), dtype=np.uint32)
+    sign = np.empty((norb * norb, n), dtype=np.int8)
+    load().gather_values(strs_packed, n, w, norb, vals, sign)
+    return vals, sign
+
+
+def samespin_width(norb: int, nelec: int) -> int:
+    """Candidates per string: the diagonal, the singles and the doubles."""
+    nv = norb - nelec
+    return 1 + nelec * nv + (nelec * (nelec - 1) // 2) * (nv * (nv - 1) // 2)
+
+
+def samespin_values(strs_packed, h1e, eri, norb: int, nelec: int):
+    """Set-independent Slater-Condon neighbour candidates of each string.
+
+    ``(nbr (n, width, W) uint32, val (n, width) f64)``: candidate neighbour
+    strings (row layout [diagonal, singles, doubles]) and their signed matrix
+    elements, with no membership filtering.
+    """
+    strs_packed = np.ascontiguousarray(strs_packed, dtype=np.uint32)
+    n, w = strs_packed.shape
+    width_full = samespin_width(norb, nelec)
+    nbr = np.empty((n, width_full, w), dtype=np.uint32)
+    val = np.empty((n, width_full), dtype=np.float64)
+    load().samespin_values(
+        strs_packed, n, w, norb, nelec,
+        np.ascontiguousarray(h1e, np.float64), np.ascontiguousarray(eri, np.float64),
+        nbr, val, width_full,
+    )
+    return nbr, val
+
+
 def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int):
     """Compacted Slater-Condon neighbour lists ``(idx (n, L) int32, val (n, L) f64)``.
 
@@ -87,13 +145,9 @@ def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int):
     ``sqd_tpu`` switches to its intersection-driven ``"sparse"`` algorithm
     (``n * width_full`` above 4M probes) the port raises: not ported yet.
     """
-    bucket = 8
     strs_packed = np.ascontiguousarray(strs_packed, dtype=np.uint32)
     n, w = strs_packed.shape
-    nv = norb - nelec
-    n_singles = nelec * nv
-    n_doubles = (nelec * (nelec - 1) // 2) * (nv * (nv - 1) // 2)
-    width_full = 1 + n_singles + n_doubles
+    width_full = samespin_width(norb, nelec)
     if n * width_full > 4_000_000:
         raise NotImplementedError(
             "the 'sparse' same-spin table algorithm (n * width_full > 4M) is not "
@@ -106,7 +160,13 @@ def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int):
         np.ascontiguousarray(h1e, np.float64), np.ascontiguousarray(eri, np.float64),
         idx, val, width_full,
     )
-    # compact: entries with val == 0 contribute nothing -> push to the back
+    return compact_neighbours(idx, val)
+
+
+def compact_neighbours(idx: np.ndarray, val: np.ndarray, bucket: int = 8):
+    """Valid entries (``val != 0``) first in each row, the width cut to a multiple
+    of ``bucket``, and everything past a row's valid prefix zeroed."""
+    n, width_full = val.shape
     valid = val != 0.0
     order = np.argsort(~valid, axis=1, kind="stable")
     idx = np.take_along_axis(idx, order, axis=1)
@@ -115,7 +175,6 @@ def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int):
     width = min(width_full, max(bucket, -(-max_count // bucket) * bucket))
     idx = idx[:, :width].copy()
     val = val[:, :width].copy()
-    # zero out anything past each row's valid prefix (stale values)
     keep = np.take_along_axis(valid, order, axis=1)[:, :width]
     idx[~keep] = 0
     val[~keep] = 0.0

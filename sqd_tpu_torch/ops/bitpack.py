@@ -23,6 +23,58 @@ def num_words(nbits: int) -> int:
     return max(1, -(-int(nbits) // WORD_BITS))
 
 
+def pack_bool_matrix(bool_mat: np.ndarray) -> np.ndarray:
+    """Pack a bitstring matrix (column 0 = MSB) into ``(S, W) uint32`` words.
+
+    Packing the original columns MSB-first gives the little-endian bytes of
+    the words in reverse order, so one ``np.packbits`` pass and a per-row
+    byte reversal do it.
+    """
+    bool_mat = np.asarray(bool_mat, dtype=bool)
+    if bool_mat.ndim != 2:
+        raise ValueError(f"Expected a 2D bool matrix. Got shape {bool_mat.shape}.")
+    n_rows, nbits = bool_mat.shape
+    w = num_words(nbits)
+    pad_cols = w * WORD_BITS - nbits
+    if pad_cols:
+        padded = np.zeros((n_rows, w * WORD_BITS), dtype=bool)
+        padded[:, pad_cols:] = bool_mat  # left pad = high bits
+        bool_mat = padded
+    as_bytes = np.packbits(np.ascontiguousarray(bool_mat), axis=1, bitorder="big")
+    rev = np.ascontiguousarray(as_bytes[:, ::-1])
+    return rev.view("<u4").reshape(n_rows, w)
+
+
+def unpack_to_bool_matrix(packed: np.ndarray, nbits: int) -> np.ndarray:
+    """Inverse of :func:`pack_bool_matrix`."""
+    packed = np.ascontiguousarray(np.asarray(packed, dtype=np.uint32))
+    n_rows, w = packed.shape
+    as_bytes = packed.astype("<u4", copy=False).view(np.uint8).reshape(n_rows, w * 4)
+    rev = np.ascontiguousarray(as_bytes[:, ::-1])
+    bits = np.unpackbits(rev, axis=1, bitorder="big")
+    pad_cols = w * WORD_BITS - nbits
+    out = bits[:, pad_cols:] if pad_cols else bits
+    return out.astype(bool, copy=False)
+
+
+def _lex_order(packed: np.ndarray) -> np.ndarray:
+    """Indices that sort rows ascending by integer value (the last word is primary)."""
+    return np.lexsort(tuple(packed[:, j] for j in range(packed.shape[1])))
+
+
+def unique_packed(packed: np.ndarray, return_counts: bool = False):
+    """Sorted unique rows of a packed matrix (and, optionally, their counts)."""
+    packed = np.asarray(packed, dtype=np.uint32)
+    order = _lex_order(packed)
+    s = packed[order]
+    keep = np.ones(len(s), dtype=bool)
+    if len(s):
+        keep[1:] = np.any(s[1:] != s[:-1], axis=1)
+    if not return_counts:
+        return s[keep]
+    return s[keep], np.diff(np.append(np.flatnonzero(keep), len(s)))
+
+
 def pack_ints(ints: np.ndarray, nbits: int) -> np.ndarray:
     """Pack an array of (possibly unbounded Python) integers into uint32 words."""
     ints = np.asarray(ints)

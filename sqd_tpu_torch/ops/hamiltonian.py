@@ -332,16 +332,17 @@ def build_sci_hamiltonian(
     with its default ``col_block="auto"``: the same padding (``pad_to``;
     clamped tables extended with zero weights, padded diagonal entries at
     1e30) and the same automatic column-block / alignment rule.  The diagonal
-    is always assembled on the host in f64.  ``table_cache`` and a Cholesky
-    ``eri_factor`` (an explicit factor, or ``"auto"`` with ``norb**2 > 256``)
-    are not ported yet and raise.
+    is always assembled on the host in f64.  A ``table_cache``
+    (:class:`sqd_tpu_torch.ops.table_cache.TableCache`) supplies the tables
+    where ``sqd_tpu`` would use it: packed width <= 2 words and at most 4096
+    same-spin candidates per string on both spins; the tables are the same
+    either way.  A Cholesky ``eri_factor`` (an explicit factor, or ``"auto"``
+    with ``norb**2 > 256``) is not ported yet and raises.
     """
     m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
     n_a, n_b = (int(x) for x in nelec)
     _check_weights(strs_a_packed, strs_b_packed, (n_a, n_b))
     npair = norb * norb
-    if table_cache is not None:
-        raise NotImplementedError("table_cache is not ported yet; see ROADMAP.md")
     if isinstance(eri_factor, np.ndarray) or (eri_factor == "auto" and npair > 256):
         raise NotImplementedError(
             "the Cholesky-factored cross-spin contraction (eri_factor) is not ported "
@@ -362,10 +363,18 @@ def build_sci_hamiltonian(
 
     h1_np = np.asarray(h1e, np.float64)
     eri_np = np.asarray(eri, np.float64)
-    src_a, sign_a = native.gather_tables(strs_a_packed, norb)
-    src_b, sign_b = native.gather_tables(strs_b_packed, norb)
-    ia, va = native.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a)
-    ib, vb = native.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b)
+    # the cache stores per-string rows at the full candidate width: at high
+    # filling that width explodes and the direct build is the cheaper one
+    cached = (
+        table_cache is not None
+        and table_cache.usable(np.asarray(strs_a_packed))
+        and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
+    )
+    tables = table_cache if cached else native
+    src_a, sign_a = tables.gather_tables(strs_a_packed, norb)
+    src_b, sign_b = tables.gather_tables(strs_b_packed, norb)
+    ia, va = tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a)
+    ib, vb = tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b)
     occ_a = _occupancy_np(strs_a_packed, norb)
     occ_b = _occupancy_np(strs_b_packed, norb)
     hd = _hdiag_np(occ_a, occ_b, h1_np, eri_np)

@@ -177,8 +177,6 @@ def test_bitpack_host_half_matches():
 def test_unported_options_raise(problem):
     sa, sb, h1, eri = problem
     pa, pb = _packed(sa), _packed(sb)
-    with pytest.raises(NotImplementedError, match="table_cache"):
-        build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu", table_cache=object())
     with pytest.raises(NotImplementedError, match="eri_factor"):
         build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu",
                               eri_factor=np.eye(NORB * NORB))

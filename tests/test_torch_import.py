@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from sqd_tpu_torch import fermion
+from sqd_tpu_torch import configuration_recovery, fermion, subsampling
+from sqd_tpu_torch.primitives import BitArray
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -22,7 +23,7 @@ for info in pkgutil.walk_packages(sqd_tpu_torch.__path__, "sqd_tpu_torch."):
     __import__(info.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "sqd_tpu"))
-print(len([m for m in sys.modules if m.startswith("sqd_tpu_torch")]), bad)
+print(",".join(sorted(m for m in sys.modules if m.startswith("sqd_tpu_torch"))), bad)
 """
 
 
@@ -37,8 +38,12 @@ def test_import_pulls_in_no_jax():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_clean_env(),
         capture_output=True, text=True, timeout=120, check=True,
     )
-    count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 12  # the package, its subpackages and modules
+    names, bad = proc.stdout.strip().split(" ", 1)
+    names = set(names.split(","))
+    assert len(names) >= 20  # the package, its subpackages and modules
+    for module in ("counts", "primitives", "subsampling", "configuration_recovery",
+                   "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device"):
+        assert f"sqd_tpu_torch.{module}" in names
     assert bad == "[]"
 
 
@@ -47,6 +52,32 @@ def test_cuda_request_raises_without_a_gpu(monkeypatch):
     strs = np.array([0b111, 0b1011])
     with pytest.raises(RuntimeError, match="cuda"):
         fermion.solve_sci((strs, strs), np.eye(4), np.zeros((4,) * 4), 4, (3, 3), device="cuda")
+
+
+_H1, _ERI = np.eye(4), np.zeros((4,) * 4)
+_STRS = np.array([0b111, 0b1011])
+_ROWS = np.array([[0, 1, 1, 1, 0, 1, 1, 1]] * 4, dtype=bool)
+ENTRY_POINTS = {
+    "solve_sci": lambda: fermion.solve_sci((_STRS, _STRS), _H1, _ERI, 4, (3, 3)),
+    "SCIState": lambda: fermion.SCIState(np.zeros((2, 2)), _STRS, _STRS, 4, (3, 3)),
+    "solve_sci_batch": lambda: fermion.solve_sci_batch([(_STRS, _STRS)], _H1, _ERI, 4, (3, 3)),
+    "solve_fermion": lambda: fermion.solve_fermion((_STRS, _STRS), _H1, _ERI),
+    "diagonalize_fermionic_hamiltonian": lambda: fermion.diagonalize_fermionic_hamiltonian(
+        _H1, _ERI, BitArray.from_bool_array(_ROWS), 2, 4, (3, 3)),
+    "recover_configurations": lambda: configuration_recovery.recover_configurations(
+        _ROWS, np.full(4, 0.25), (np.full(4, 0.75), np.full(4, 0.75)), 3, 3),
+    "subsample_device": lambda: subsampling.subsample_device(
+        np.eye(8, dtype=bool), np.full(8, 0.125), 2, 3, torch.Generator()),
+}
+
+
+@pytest.mark.parametrize("entry_point", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(monkeypatch, entry_point):
+    """Called with no device and no card, every entry point raises: none falls
+    back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[entry_point]()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -22,6 +22,7 @@ from sqd_tpu.ops import dense_fci
 
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.models.fcidump import read_fcidump
+from sqd_tpu_torch.primitives import BitArray
 
 torch.set_num_threads(2)
 
@@ -108,10 +109,21 @@ def test_unported_paths_raise():
     h1, eri = hubbard_integrals(4, u=1.0)
     for kwargs, match in (
         ({"matvec_strategy": "dense_df"}, "dense_df"),
-        ({"table_cache": object()}, "table_cache"),
         ({"eri_factor": np.eye(16)}, "eri_factor"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             fermion.solve_sci((strs, strs), h1, eri, 4, (3, 3), device="cpu", **kwargs)
+    rows = np.ones((4, 8), dtype=bool)
+    with pytest.raises(NotImplementedError, match="checkpoint_path"):
+        fermion.diagonalize_fermionic_hamiltonian(
+            h1, eri, BitArray.from_bool_array(rows), 2, 4, (3, 3), checkpoint_path="loop.npz",
+            device="cpu")
+    for unported in (fermion.solve_sci_excited, fermion.optimize_orbitals,
+                     fermion.enlarge_batch_from_transitions, fermion.SCIState.load):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            unported("anything")
+    state = fermion.SCIState(np.zeros((2, 2)), strs, strs, 4, (3, 3), device="cpu")
+    with pytest.raises(NotImplementedError, match="SCIState.save"):
+        state.save("state.npz")
     with pytest.raises(ValueError, match="hamming weight"):
         fermion.solve_sci((np.array([0b111, 0b1]), strs), h1, eri, 4, (3, 3), device="cpu")

@@ -16,11 +16,17 @@ Phases, each printing one line; any failure exits non-zero:
    headline operator (M = N = 1024, npair = 256), a ragged small operator, a
    spin-penalty operator, a wide one (N = 4480: several shared-memory k
    tiles), a sparse one (padded far past its strings: most rows and columns
-   have no valid pair) and the headline with small tiles forced on both the
-   k and the rs axis, within ``1e-5 * max(|plain|, 1)``; median times of
-   both at the headline shape from CUDA events, the kernel's bound (the
-   larger of its FLOPs at the f32 rate and its bytes at the HBM rate,
-   counted from the operands) and one f32 matvec's time;
+   have no valid pair), the headline with small tiles forced on both the
+   k and the rs axis, and a 1000 x 1000 batch of 28-orbital strings on the
+   N2/cc-pVDZ integrals (npair 784) with ``plan()``'s tiles and with rs
+   tiles forced, within ``1e-5 * max(|plain|, 1)``; median times of both at
+   the headline and the 28-orbital shapes from CUDA events, the kernel's
+   bound there (the larger of its FLOPs at the f32 rate and its bytes at
+   the HBM rate, counted from the operands), one f32 matvec's time, one
+   f32 matvec at npair 784 by the kernel route and by the Cholesky-factored
+   route, and both column-blocked f64 matvecs against ``_matvec_full`` on
+   the headline operator forced to ``col_block`` 128, bare and with the
+   spin penalty, within ``1e-12 * max(|full|, 1)``;
 4. Davidson — the f32 solver on the headline operator (``bench.py``'s
    settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
 5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
@@ -38,7 +44,27 @@ Phases, each printing one line; any failure exits non-zero:
    1e-7 Ha of a host-f64 Rayleigh quotient of its amplitudes; every batch
    solve must run in f32 (above 200k determinants) and launch the kernel;
    the table cache must have reused rows.  Prints each iteration's seconds
-   in recovery, subsampling, table builds and solves.
+   in recovery, subsampling, table builds and solves;
+7. CASCI — ``solve_sci`` with its defaults on all C(16,5) = 4368 strings per
+   spin of the same problem (19,079,424 determinants, padded to 4384 x 4480,
+   ``col_block`` 128): first the kernel against its plain version, and
+   timed, on that operator; then the solve must launch the kernel (f32
+   Davidson), run a column-blocked f64 matvec (refinement and energy), and
+   give a total energy within 2e-6 Ha of the published -109.046671778080 Ha
+   (``bench.py``'s gate).  Prints the seconds of each stage and the peak
+   device memory;
+8. cc-pVDZ loop — BASELINE config 3: the SQD loop on N2/cc-pVDZ over all 28
+   orbitals, (7,7)e (``sqd_tpu_torch/data/n2_ccpvdz_28o_7a7b.fcidump``),
+   with 200,000 shots of 56 bits (:func:`ccpvdz_shots`) and
+   ``CCPVDZ_SETTINGS`` (2 iterations of 2 batches of 1000 x 1000 strings)
+   and an explicit Cholesky factor (``"auto"`` declines these integrals).
+   Iteration 0 must give ``sqd_tpu``'s recorded strings
+   (``tools/make_ccpvdz_data.py``), a solve of the recorded sub-batch its
+   energy within 1e-7 Ha; the best energy must lie within 1e-7 Ha of a
+   host-f64 Rayleigh quotient (alpha-row blocks) and below RHF, its
+   occupancies sum to (7, 7); every batch solve must build the sparse
+   same-spin tables, a column-blocked operator with the factor attached,
+   launch the kernel and run a blocked f64 matvec.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -64,6 +90,18 @@ LOOP_SETTINGS = {
     "samples_per_batch": 3000, "num_batches": 3, "max_iterations": 3, "max_dim": 1000,
     "symmetrize_spin": False, "seed": 11,
 }
+# phase 7: the full N2/6-31G CASCI, and its published energy (bench.py's gate)
+CASCI_ENERGY = -109.046671778080  # Ha
+TOL_CASCI = 2e-6  # Ha
+# phase 8: BASELINE config 3, the SQD loop on N2/cc-pVDZ over all 28 orbitals,
+# and the sqd_tpu record of its iteration 0 (tools/make_ccpvdz_data.py)
+CCPVDZ_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_ccpvdz_28o_7a7b")
+CCPVDZ_SHOTS = 200_000
+CCPVDZ_SETTINGS = {
+    "samples_per_batch": 3000, "num_batches": 2, "max_iterations": 2, "max_dim": 1000,
+    "symmetrize_spin": True, "seed": 13,
+}
+CCPVDZ_SUB_BATCH = 150  # strings per spin of the recorded sub-batch solve
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -107,25 +145,34 @@ def all_strings(norb, n_elec):
                            for occ in itertools.combinations(range(norb), n_elec)))
 
 
-def loop_shots(n_shots=LOOP_SHOTS, seed=5):
-    """Phase 6's samples: an ``(n_shots, 32)`` bool matrix, rows ``[b_15..b_0, a_15..a_0]``.
-
-    80 % are (alpha, beta) pairs drawn uniformly from the headline string sets
-    (samples concentrated near the HF determinant), 20 % uniform random bits
-    that configuration recovery has to repair.
-    """
+def _shots(strs_a, strs_b, norb, n_shots, seed):
+    """``(n_shots, 2 * norb)`` bool rows ``[b_{norb-1}..b_0, a_{norb-1}..a_0]``:
+    80 % (alpha, beta) pairs drawn uniformly from the two string sets, 20 %
+    uniform random bits that configuration recovery has to repair."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    strs_a = excitation_strings(1000, 16, 5, 1)
-    strs_b = excitation_strings(1000, 16, 5, 2)
     n_pairs = n_shots * 4 // 5
     pick_a = strs_a[rng.integers(0, len(strs_a), n_pairs)]
     pick_b = strs_b[rng.integers(0, len(strs_b), n_pairs)]
-    shifts = np.arange(15, -1, -1)
+    shifts = np.arange(norb - 1, -1, -1)
     pairs = np.hstack([(pick_b[:, None] >> shifts) & 1, (pick_a[:, None] >> shifts) & 1])
-    noise = rng.integers(0, 2, size=(n_shots - n_pairs, 32))
+    noise = rng.integers(0, 2, size=(n_shots - n_pairs, 2 * norb))
     return np.vstack([pairs, noise]).astype(bool)
+
+
+def loop_shots(n_shots=LOOP_SHOTS, seed=5):
+    """Phase 6's samples: an ``(n_shots, 32)`` bool matrix, pairs from the
+    headline string sets (samples concentrated near the HF determinant)."""
+    return _shots(excitation_strings(1000, 16, 5, 1), excitation_strings(1000, 16, 5, 2),
+                  16, n_shots, seed)
+
+
+def ccpvdz_shots(n_shots=CCPVDZ_SHOTS, seed=6):
+    """Phase 8's samples: an ``(n_shots, 56)`` bool matrix, pairs from 1500
+    excitation strings per spin of 28 orbitals and 7 electrons."""
+    return _shots(excitation_strings(1500, 28, 7, 3), excitation_strings(1500, 28, 7, 4),
+                  28, n_shots, seed)
 
 
 def strings_digest(strs) -> str:
@@ -137,9 +184,11 @@ def strings_digest(strs) -> str:
     return hashlib.sha256(np.ascontiguousarray(strs, dtype=np.int64).tobytes()).hexdigest()
 
 
-def host_f64_energy(ham, vec) -> float:
+def host_f64_energy(ham, vec, row_block=32) -> float:
     """True f64 Rayleigh quotient <c|H|c>/<c|c> in NumPy from the operator's
-    own tables (as ``bench.py``'s ``_host_f64_energy``)."""
+    own tables (as ``bench.py``'s ``_host_f64_energy``), the opposite-spin
+    pair Gram accumulated over blocks of ``row_block`` alpha rows (at 28
+    orbitals the whole Gram's operands would take 12 GB of host memory)."""
     import numpy as np
 
     m, n = ham.shape
@@ -151,10 +200,15 @@ def host_f64_energy(ham, vec) -> float:
     sign_b = ham.sign_b.cpu().numpy().astype(np.float64)
     eri_t = ham.eri_t.cpu().numpy().astype(np.float64)
     npair = eri_t.shape[0]
-    d_a = (sign_a[:, :, None] * c[src_a]).reshape(npair, -1)
-    d_b = np.swapaxes(np.take(c, src_b, axis=1), 0, 1) * sign_b[:, None, :]
-    pab = d_a @ d_b.reshape(npair, -1).T
-    del d_a, d_b
+    pab = np.zeros((npair, npair))
+    for i0 in range(0, m, row_block):
+        rows = slice(i0, i0 + row_block)
+        # pairs with no valid entry in these rows contribute nothing
+        live = np.flatnonzero(np.any(sign_a[:, rows] != 0, axis=1))
+        d_a = (sign_a[live, rows, None] * c[src_a[live, rows]]).reshape(len(live), -1)
+        d_b = np.swapaxes(np.take(c[rows], src_b, axis=1), 0, 1) * sign_b[:, None, :]
+        pab[live] += d_a @ d_b.reshape(npair, -1).T
+        del d_a, d_b
     e = float(np.sum(eri_t * pab.T))
     gram_r = c @ c.T
     gram_c = c.T @ c
@@ -167,108 +221,319 @@ def host_f64_energy(ham, vec) -> float:
     return e
 
 
-STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
-         "table builds + upload", "solves (tables included)")
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
-def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
-    """Phase 6: the SQD loop at full width.  Returns the kernel's launches in it."""
+def event_ms(fn, calls=10) -> float:
+    """Per-call device time of ``calls`` back-to-back calls between two events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def check_kernel(name, ham, rng, tiles=None) -> float:
+    """The kernel against its plain version on random amplitudes; returns
+    the largest difference and fails past ``TOL_KERNEL * max(|plain|, 1)``."""
+    import torch
+
+    from sqd_tpu_torch.ops import cross_spin
+
+    ops = ham.cross_spin_operands()
+    m, n = ham.shape
+    npair = ops.eri.shape[0]
+    if tiles is None:
+        tiles = cross_spin.plan(n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
+    c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=ham.src_a.device)
+    out = cross_spin.cross_spin_matvec(c, ops, tiles=tiles)
+    sync()
+    ref = cross_spin.cross_spin_plain(c, ops)
+    err = float((out - ref).abs().max())
+    bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
+    finite = bool(torch.isfinite(out).all())
+    empty = (int((ops.ka_n == 0).sum()), int((ops.kb_n == 0).sum()))
+    print(f"kernel vs plain [{name}] shape {(m, n)} npair {npair} ka {ops.ka_pq.shape[1]} "
+          f"kb {ops.kb_rs.shape[1]}, empty rows/cols {empty}, tiles (cols, rs) {tiles}: "
+          f"{-(-n // tiles[0])} k x {-(-npair // tiles[1])} rs: "
+          f"max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
+    if not finite or err > bound:
+        fail(f"cross_spin_matvec disagrees with its plain version on {name}")
+    return err
+
+
+def time_kernel(label, ham, rng, smi, rounds=10, calls=10) -> dict:
+    """Median per-call times of the kernel and its plain version (in turns:
+    plain, kernel, kernel, plain) and the kernel's bound, at ``ham``'s shape."""
     import numpy as np
     import torch
 
-    from sqd_tpu_torch import configuration_recovery, fermion
-    from sqd_tpu_torch.ops import bitpack, cross_spin
-    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
-    from sqd_tpu_torch.ops.table_cache import TableCache
-    from sqd_tpu_torch.primitives import BitArray
+    from sqd_tpu_torch.ops import cross_spin
 
-    with open(LOOP_DATA) as f:
-        recorded = json.load(f)
-    norb, nelec = 16, (5, 5)
-    shots = BitArray.from_bool_array(loop_shots())
+    ops = ham.cross_spin_operands()
+    c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=ham.src_a.device)
+    m, n = ham.shape
+    npair = ops.eri.shape[0]
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+    def run_kernel():
+        cross_spin.cross_spin_matvec(c, ops)
 
-    # Seconds per step, one dict per iteration, from wrappers around the
-    # functions the loop calls (each synchronises the card before and after).
-    spans: list[dict] = [{}]
-    solves = []  # (m, n, kernel launches) of each batch solve
-    originals = []
+    def run_plain():
+        cross_spin.cross_spin_plain(c, ops)
 
-    def wrap(module, name, make):
-        fn = getattr(module, name)
-        originals.append((module, name, fn))
-        setattr(module, name, make(fn))
+    run_kernel(), run_plain()  # warm
+    kernel_ms, plain_ms = [], []
+    for _ in range(rounds):
+        plain_ms.append(event_ms(run_plain, calls))
+        kernel_ms.append(event_ms(run_kernel, calls))
+        kernel_ms.append(event_ms(run_kernel, calls))
+        plain_ms.append(event_ms(run_plain, calls))
+    t_kernel, t_plain = float(np.median(kernel_ms)), float(np.median(plain_ms))
+    # the least time for the same work: every valid (alpha pair, beta pair)
+    # couple is one FMA; every input is read once and the output written once
+    flops = 2.0 * float(ops.ka_n.sum()) * float(ops.kb_n.sum())
+    moved = [c, c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
+             ops.kb_n, ops.kb_rs, ops.kb_src, ops.kb_sgn, ops.eri]
+    nbytes = float(sum(t.numel() * t.element_size() for t in moved))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    print(f"timing [{label}] at {(m, n)}, npair {npair} ({smi}): kernel {t_kernel:.4f} ms, "
+          f"plain {t_plain:.4f} ms (per call: medians of {2 * rounds} rounds of {calls} calls, "
+          f"CUDA events)", flush=True)
+    print(f"bound [{label}]: {flops / 1e9:.4f} GFLOP at 67 TFLOP/s = {t_ops:.5f} ms, "
+          f"{nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms "
+          f"by {bound_by}; kernel at {bound_ms / t_kernel:.2%} of it "
+          f"({flops / t_kernel / 1e9:.3f} TFLOP/s)", flush=True)
+    return {"shape": [m, n, npair], "ms": t_kernel, "plain_ms": t_plain,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
-    def timed(key):
+
+STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
+         "table builds + upload", "solves (tables included)")
+SOLVE_STAGES = ("host tables", "f32 Davidson", "f64 refinement", "RDMs",
+                "two-hole tables (host, in RDMs)", "f64 energy")
+BLOCKED_VARIANTS = ("_SCIHamiltonian__matvec_blocked",
+                    "_SCIHamiltonian__matvec_blocked_beta_first_rowmajor")
+
+
+class Probe:
+    """Wrappers around functions the port calls, for one phase: seconds per
+    step (each wrapper synchronises the card before and after), and per batch
+    solve its subspace, kernel launches, blocked-matvec variants, the
+    operators it built (``col_block``, an attached factor) and the sparse
+    same-spin table fills.  Restores everything on exit."""
+
+    def __init__(self):
+        self.spans: list[dict] = [{}]
+        self.solves: list[dict] = []
+        self.builds: list[dict] = []
+        self.variants: list[str] = []
+        self.sparse_fills = 0
+        self.davidson: list[tuple[str, int]] = []  # (stage, iterations) of each call
+        self.history: list[list] = []
+        self._originals = []
+
+    def wrap(self, owner, name, make):
+        fn = getattr(owner, name)
+        self._originals.append((owner, name, fn))
+        setattr(owner, name, make(fn))
+
+    def timed(self, owner, name, key):
         def make(fn):
             def wrapper(*args, **kwargs):
                 sync()
                 t0 = time.perf_counter()
                 out = fn(*args, **kwargs)
                 sync()
-                spans[-1][key] = spans[-1].get(key, 0.0) + time.perf_counter() - t0
+                self.spans[-1][key] = self.spans[-1].get(key, 0.0) + time.perf_counter() - t0
                 return out
             return wrapper
-        return make
+        self.wrap(owner, name, make)
 
-    def counted(fn):
-        def wrapper(ci_strings, *args, **kwargs):
-            before = cross_spin.cross_spin_matvec.launches
-            out = fn(ci_strings, *args, **kwargs)
-            solves.append((len(ci_strings[0]), len(ci_strings[1]),
-                           cross_spin.cross_spin_matvec.launches - before))
-            return out
-        return wrapper
+    def __enter__(self):
+        from sqd_tpu_torch import fermion, native
+        from sqd_tpu_torch.ops import cross_spin
+        from sqd_tpu_torch.ops.hamiltonian import SCIHamiltonian
 
-    for module, name, key in (
-        (fermion, "postselect_by_hamming_right_and_left", "postselect"),
-        (fermion, "recover_configurations", "recovery"),
-        (configuration_recovery, "_gumbel_noise", "recovery on the device"),
-        (configuration_recovery, "_recover_kernel", "recovery on the device"),
-        (fermion, "subsample", "subsampling"),
-        (fermion, "build_sci_hamiltonian", "table builds + upload"),
-        (fermion, "solve_sci", "solves (tables included)"),
-    ):
-        wrap(module, name, timed(key))
-    wrap(fermion, "solve_sci", counted)
+        def counted_solve(fn):
+            def wrapper(ci_strings, *args, **kwargs):
+                launches, builds = cross_spin.cross_spin_matvec.launches, len(self.builds)
+                variants, fills = len(self.variants), self.sparse_fills
+                davidson = len(self.davidson)
+                out = fn(ci_strings, *args, **kwargs)
+                self.solves.append({
+                    "davidson": self.davidson[davidson:],
+                    "shape": (len(ci_strings[0]), len(ci_strings[1])),
+                    "launches": cross_spin.cross_spin_matvec.launches - launches,
+                    "builds": self.builds[builds:],
+                    "variants": sorted(set(self.variants[variants:])),
+                    "sparse_fills": self.sparse_fills - fills,
+                })
+                return out
+            return wrapper
 
-    history = []
+        def recorded_build(fn):
+            def wrapper(*args, **kwargs):
+                ham = fn(*args, **kwargs)
+                self.builds.append({"col_block": ham.col_block,
+                                    "eri_chol": ham.eri_chol is not None, "shape": ham.shape})
+                return ham
+            return wrapper
 
-    def callback(results):
-        history.append(results)
-        spans.append({})
+        def variant(name):
+            def make(fn):
+                def wrapper(ham, c):
+                    self.variants.append(name.split("__")[-1])
+                    return fn(ham, c)
+                return wrapper
+            return make
+
+        def counted_fill(fn):
+            def wrapper(*args):
+                self.sparse_fills += 1
+                return fn(*args)
+            return wrapper
+
+        self.wrap(fermion, "build_sci_hamiltonian", recorded_build)
+        self.wrap(fermion, "solve_sci", counted_solve)
+        for name in BLOCKED_VARIANTS:
+            self.wrap(SCIHamiltonian, name, variant(name))
+        self.wrap(native.load(), "samespin_sparse_fill", counted_fill)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._originals):
+            setattr(owner, name, fn)
+
+    def loop_steps(self):
+        """Time the steps of the SQD loop (phases 6 and 8)."""
+        from sqd_tpu_torch import configuration_recovery, fermion
+
+        for owner, name, key in (
+            (fermion, "postselect_by_hamming_right_and_left", "postselect"),
+            (fermion, "recover_configurations", "recovery"),
+            (configuration_recovery, "_gumbel_noise", "recovery on the device"),
+            (configuration_recovery, "_recover_kernel", "recovery on the device"),
+            (fermion, "subsample", "subsampling"),
+            (fermion, "build_sci_hamiltonian", "table builds + upload"),
+            (fermion, "solve_sci", "solves (tables included)"),
+        ):
+            self.timed(owner, name, key)
+
+    def solve_stages(self):
+        """Time the stages of each solve (phases 7 and 8): the host tables,
+        each Davidson run by its dtype, the RDMs with their host two-hole
+        tables, and the f64 energy."""
+        from sqd_tpu_torch import fermion, native
+        from sqd_tpu_torch.ops import linktab
+        from sqd_tpu_torch.ops import rdm as rdm_ops
+
+        self.timed(native, "gather_tables", "host tables")
+        self.timed(native, "samespin_tables", "host tables")
+        self.timed(rdm_ops, "make_rdms", "RDMs")
+        self.timed(linktab, "build_desdes_tables", "two-hole tables (host, in RDMs)")
+        self.timed(fermion, "expectation_value", "f64 energy")
+
+        def davidson_stage(fn):
+            def wrapper(matvec, operator, hdiag, v0, **kwargs):
+                stage = "f32 Davidson" if v0.dtype.itemsize == 4 else "f64 refinement"
+                sync()
+                t0 = time.perf_counter()
+                out = fn(matvec, operator, hdiag, v0, **kwargs)
+                sync()
+                self.spans[-1][stage] = self.spans[-1].get(stage, 0.0) + time.perf_counter() - t0
+                self.davidson.append((stage, out.iterations))
+                return out
+            return wrapper
+
+        self.wrap(fermion, "davidson_ground_state", davidson_stage)
+
+    def callback(self, results):
+        self.history.append(results)
+        self.spans.append({})
+
+
+def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solver_options,
+             recorded, stages=False):
+    """Run the SQD loop under a :class:`Probe` (with ``stages``, timing each
+    solve's stages too); print each iteration's seconds and check iteration
+    0's strings against ``recorded``.  Returns the probe,
+    the best result, the loop's seconds, its kernel launches and the checks."""
+    import torch
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.ops import cross_spin
+    from sqd_tpu_torch.ops.table_cache import TableCache
 
     cache = TableCache()
-    cross_spin.cross_spin_matvec.launches = 0
-    sync()
-    t0 = time.perf_counter()
-    best = fermion.diagonalize_fermionic_hamiltonian(
-        h1, eri, shots, norb=norb, nelec=nelec, callback=callback,
-        solver_options={"table_cache": cache}, device=dev, **LOOP_SETTINGS,
-    )
-    sync()
-    t_loop = time.perf_counter() - t0
-    launches = cross_spin.cross_spin_matvec.launches
-    for module, name, fn in reversed(originals):
-        setattr(module, name, fn)
-    spans.pop()  # opened after the last iteration
-
-    for i, (results, span) in enumerate(zip(history, spans)):
-        steps = ", ".join(f"{k} {span[k]:.4f} s" for k in STEPS if k in span)
-        print(f"sqd loop iteration {i}: {steps}; subspaces "
+    with Probe() as probe:
+        probe.loop_steps()
+        if stages:
+            probe.solve_stages()
+        cross_spin.cross_spin_matvec.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        best = fermion.diagonalize_fermionic_hamiltonian(
+            h1, eri, shots, norb=norb, nelec=nelec, callback=probe.callback,
+            solver_options={"table_cache": cache, **solver_options}, device=dev, **settings,
+        )
+        sync()
+        t_loop = time.perf_counter() - t0
+        launches = cross_spin.cross_spin_matvec.launches
+    probe.spans.pop()  # opened after the last iteration
+    probe.cache = cache
+    for i, (results, span) in enumerate(zip(probe.history, probe.spans)):
+        steps = ", ".join(f"{k} {span[k]:.4f} s" for k in STEPS + SOLVE_STAGES if k in span)
+        print(f"{label} iteration {i}: {steps}; subspaces "
               f"{[r.sci_state.amplitudes.shape for r in results]}; energies "
               f"{[round(r.energy + ecore, 10) for r in results]} Ha", flush=True)
-
-    it0 = history[0]
+    it0 = probe.history[0]
     it0_strings = [
         (strings_digest(r.sci_state.ci_strs_a), strings_digest(r.sci_state.ci_strs_b))
         == (b["sha256_alpha"], b["sha256_beta"])
         for r, b in zip(it0, recorded["batches"])
     ]
-    it0_diff = max(abs(r.energy - b["energy"]) for r, b in zip(it0, recorded["batches"]))
+    checks = {
+        "iteration 0 gives sqd_tpu's strings": len(it0) == len(recorded["batches"])
+        and all(it0_strings),
+        "the kernel launched in every batch solve":
+            len(probe.solves) == sum(map(len, probe.history))
+            and all(s["launches"] >= 1 for s in probe.solves),
+        "every batch solve above 200k determinants (f32)": all(
+            s["shape"][0] * s["shape"][1] > 200_000 for s in probe.solves),
+    }
+    print(f"{label}: {len(probe.history)} iterations, {len(probe.solves)} batch solves in "
+          f"{t_loop:.3f} s ({smi}); best energy {best.energy + ecore:.12f} Ha; iteration 0 "
+          f"vs sqd_tpu: strings {it0_strings}; kernel launches per solve "
+          f"{[s['launches'] for s in probe.solves]} ({launches} in all); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return probe, best, t_loop, launches, checks
+
+
+def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
+    """Phase 6: the SQD loop at full width.  Returns the kernel's launches in it."""
+    import numpy as np
+
+    from sqd_tpu_torch.ops import bitpack
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+    from sqd_tpu_torch.primitives import BitArray
+
+    with open(LOOP_DATA) as f:
+        recorded = json.load(f)
+    norb, nelec = 16, (5, 5)
+    probe, best, _, launches, checks = run_loop(
+        dev, smi, "sqd loop", h1, eri, ecore, norb, nelec,
+        BitArray.from_bool_array(loop_shots()), LOOP_SETTINGS, {}, recorded)
+    it0_diff = max(abs(r.energy - b["energy"])
+                   for r, b in zip(probe.history[0], recorded["batches"]))
     state = best.sci_state
     ham = build_sci_hamiltonian(bitpack.pack_ints(state.ci_strs_a, norb),
                                 bitpack.pack_ints(state.ci_strs_b, norb),
@@ -277,30 +542,154 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
     vec[: state.amplitudes.shape[0], : state.amplitudes.shape[1]] = state.amplitudes
     e_host = host_f64_energy(ham, vec)
     occ_a, occ_b = best.orbital_occupancies
-    strings_solved = sum(m + n for m, n, _ in solves)
-    print(f"sqd loop: {len(history)} iterations, {len(solves)} batch solves in "
-          f"{t_loop:.3f} s ({smi}); best energy {best.energy + ecore:.12f} Ha, "
-          f"|E - host f64| {abs(best.energy - e_host):.3e}; iteration 0 vs sqd_tpu: strings "
-          f"{it0_strings}, max |dE| {it0_diff:.3e}; kernel launches per solve "
-          f"{[k for _, _, k in solves]} ({launches} in all); table cache: "
-          f"{cache.native_rows_computed} native rows for {strings_solved} strings solved "
-          f"(a direct build computes {2 * strings_solved})", flush=True)
-    checks = {
-        "iteration 0 gives sqd_tpu's strings": len(it0) == len(recorded["batches"])
-        and all(it0_strings),
+    strings_solved = sum(s["shape"][0] + s["shape"][1] for s in probe.solves)
+    print(f"sqd loop: |E - host f64| {abs(best.energy - e_host):.3e}; iteration 0 vs sqd_tpu: "
+          f"max |dE| {it0_diff:.3e}; table cache: {probe.cache.native_rows_computed} native "
+          f"rows for {strings_solved} strings solved (a direct build computes "
+          f"{2 * strings_solved})", flush=True)
+    checks.update({
         "iteration 0 energies within 1e-7 Ha of sqd_tpu's": it0_diff < TOL_ENERGY,
         "best energy vs host f64": abs(best.energy - e_host) < TOL_ENERGY,
         "best occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8
         and abs(occ_b.sum() - 5) < 1e-8,
-        "every batch solve above 200k determinants (f32)": all(
-            m * n > 200_000 for m, n, _ in solves),
-        "the kernel launched in every batch solve": len(solves) == sum(map(len, history))
-        and all(k >= 1 for _, _, k in solves),
-        "the table cache reused rows": cache.native_rows_computed < strings_solved,
-    }
+        "the table cache reused rows": probe.cache.native_rows_computed < strings_solved,
+    })
     for what, ok in checks.items():
         if not ok:
             fail(f"sqd loop: {what}")
+    return launches
+
+
+def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float]:
+    """Phase 7: the full N2/6-31G CASCI (C(16,5)^2 = 19,079,424 determinants)
+    through ``solve_sci`` with its defaults.  Returns the kernel's launches in
+    the solve, its times at this shape and its largest difference from the
+    plain version."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import hamiltonian as ham_ops
+
+    norb, nelec = 16, (5, 5)
+    strs = all_strings(norb, nelec[0])
+    packed = bitpack.pack_ints(strs, norb)
+    # the kernel at this shape, on the f32 operator the solve builds
+    ham32 = ham_ops.build_sci_hamiltonian(packed, packed, h1, eri, norb, nelec, device=dev,
+                                          dtype=torch.float32, pad_to=(4384, 4384))
+    err = check_kernel("casci", ham32, rng)
+    timing = time_kernel("casci", ham32, rng, smi, rounds=3, calls=3)
+    timing["max_abs_err"] = err
+    del ham32
+    torch.cuda.empty_cache()
+
+    with Probe() as probe:
+        probe.timed(fermion, "build_sci_hamiltonian", "table builds + upload")
+        probe.solve_stages()
+        cross_spin.cross_spin_matvec.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        result = fermion.solve_sci((strs, strs), h1, eri, norb, nelec, device=dev)
+        sync()
+        t_solve = time.perf_counter() - t0
+        launches = cross_spin.cross_spin_matvec.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    span = probe.spans[-1]
+    build = probe.builds[0]
+    e_total = result.energy + ecore
+    amps = result.sci_state.amplitudes
+    occ_a, occ_b = result.orbital_occupancies
+    seconds = ", ".join(f"{k} {span[k]:.3f} s" for k in ("table builds + upload", *SOLVE_STAGES)
+                        if k in span)
+    print(f"casci: {len(strs)} x {len(strs)} = {len(strs) ** 2} determinants, operator "
+          f"{build['shape']}, col_block {build['col_block']}, f64 blocked variants "
+          f"{sorted(set(probe.variants))}; {seconds}; Davidson (stage, iterations) "
+          f"{probe.davidson}; "
+          f"solve_sci {t_solve:.3f} s, kernel launches {launches}, peak device memory "
+          f"{peak:.2f} GB ({smi})", flush=True)
+    print(f"casci: energy {e_total:.12f} Ha, published {CASCI_ENERGY:.12f} Ha, "
+          f"|dE| {abs(e_total - CASCI_ENERGY):.3e} (gate {TOL_CASCI:.0e})", flush=True)
+    checks = {
+        "the kernel launched in the f32 Davidson": launches > 0,
+        "col_block > 0": build["col_block"] > 0,
+        "the f64 refinement ran the blocked matvec": bool(probe.variants),
+        "amplitudes (4368, 4368) and finite": amps.shape == (4368, 4368)
+        and bool(np.isfinite(amps).all()),
+        "occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8 and abs(occ_b.sum() - 5) < 1e-8,
+        "rdm1/rdm2 finite": bool(np.isfinite(result.rdm1).all() and np.isfinite(result.rdm2).all()),
+        "energy within 2e-6 Ha of the published CASCI energy":
+            abs(e_total - CASCI_ENERGY) < TOL_CASCI,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"casci: {what}")
+    return launches, timing, err
+
+
+def ccpvdz_phase(dev, smi, factor) -> int:
+    """Phase 8: BASELINE config 3, the SQD loop on N2/cc-pVDZ over all 28
+    orbitals.  Returns the kernel's launches in it."""
+    import numpy as np
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.models.fcidump import read_fcidump
+    from sqd_tpu_torch.ops import bitpack
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+    from sqd_tpu_torch.primitives import BitArray
+
+    with open(CCPVDZ_STEM + ".json") as f:
+        recorded = json.load(f)
+    dump = read_fcidump(CCPVDZ_STEM + ".fcidump")
+    h1, eri, ecore = dump["h1e"], dump["eri"], dump["ecore"]
+    norb, nelec = 28, (7, 7)
+    probe, best, _, launches, checks = run_loop(
+        dev, smi, "ccpvdz loop", h1, eri, ecore, norb, nelec,
+        BitArray.from_bool_array(ccpvdz_shots()), CCPVDZ_SETTINGS, {"eri_factor": factor},
+        recorded, stages=True)
+    # the recorded sub-batch: the first strings of iteration 0's batch 0
+    first = probe.history[0][0].sci_state
+    sub = (first.ci_strs_a[:CCPVDZ_SUB_BATCH], first.ci_strs_b[:CCPVDZ_SUB_BATCH])
+    sub_energy = fermion.solve_sci(sub, h1, eri, norb, nelec, device=dev).energy
+    sub_diff = abs(sub_energy - recorded["sub_batch"]["energy"])
+    state = best.sci_state
+    ham = build_sci_hamiltonian(bitpack.pack_ints(state.ci_strs_a, norb),
+                                bitpack.pack_ints(state.ci_strs_b, norb),
+                                h1, eri, norb, nelec, device=dev, eri_factor=None)
+    vec = np.zeros(ham.shape)
+    vec[: state.amplitudes.shape[0], : state.amplitudes.shape[1]] = state.amplitudes
+    sync()
+    t0 = time.perf_counter()
+    e_host = host_f64_energy(ham, vec)
+    t_host = time.perf_counter() - t0
+    occ_a, occ_b = best.orbital_occupancies
+    print(f"ccpvdz loop: sub-batch {tuple(map(len, sub))} energy vs sqd_tpu |dE| "
+          f"{sub_diff:.3e}; best |E - host f64| {abs(best.energy - e_host):.3e} (host quotient "
+          f"in 32-row blocks, {t_host:.2f} s); RHF {recorded['rhf_energy']:.12f} Ha; per solve: "
+          f"operators {[b for s in probe.solves for b in s['builds']]}, sparse same-spin fills "
+          f"{[s['sparse_fills'] for s in probe.solves]}, f64 blocked variants "
+          f"{[s['variants'] for s in probe.solves]}, Davidson (stage, iterations) "
+          f"{[s['davidson'] for s in probe.solves]}", flush=True)
+    checks.update({
+        "every batch above 877 strings per spin (sparse same-spin tables)": all(
+            min(s["shape"]) > 877 for s in probe.solves),
+        "every batch solve filled sparse same-spin tables": all(
+            s["sparse_fills"] >= 2 for s in probe.solves),
+        "every batch operator has col_block > 0 and an attached eri_chol": all(
+            len(s["builds"]) == 1 and s["builds"][0]["col_block"] > 0
+            and s["builds"][0]["eri_chol"] for s in probe.solves),
+        "every batch f64 refinement ran a blocked matvec": all(
+            s["variants"] for s in probe.solves),
+        "sub-batch energy within 1e-7 Ha of sqd_tpu's": sub_diff < TOL_ENERGY,
+        "best energy vs host f64": abs(best.energy - e_host) < TOL_ENERGY,
+        "best occupancies sum to (7, 7)": abs(occ_a.sum() - 7) < 1e-8
+        and abs(occ_b.sum() - 7) < 1e-8,
+        "best energy below RHF": best.energy + ecore < recorded["rhf_energy"],
+    })
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"ccpvdz loop: {what}")
     return launches
 
 
@@ -330,7 +719,10 @@ def main() -> None:
     from sqd_tpu_torch.models.fcidump import read_fcidump
     from sqd_tpu_torch.ops import bitpack, cross_spin
     from sqd_tpu_torch.ops.davidson import davidson_ground_state, davidson_initial_guess
-    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian, sci_matvec_flat
+    from sqd_tpu_torch.ops.hamiltonian import (
+        build_sci_hamiltonian, pivoted_cholesky_pairs, sci_matvec_flat,
+    )
+    from sqd_tpu_torch.ops.precision import highest_precision
 
     # -- 2. build ----------------------------------------------------------
     with ThreadPoolExecutor(2) as pool:  # g++ and nvcc side by side
@@ -356,6 +748,20 @@ def main() -> None:
     rng = np.random.default_rng(0)
     small_a = pa[np.sort(rng.choice(1000, 37, replace=False))]
     small_b = pb[np.sort(rng.choice(1000, 45, replace=False))]
+    # N2/cc-pVDZ over 28 orbitals (phase 8's integrals): a 1000 x 1000 batch
+    # of excitation strings, npair 784.  sqd_tpu's "auto" rank cap (784 // 3)
+    # declines to factor these integrals (rank 365 at 1e-13), so the factor
+    # is computed uncapped and passed explicitly, here and in phase 8.
+    dump28 = read_fcidump(CCPVDZ_STEM + ".fcidump")
+    h1_28, eri_28 = dump28["h1e"], dump28["eri"]
+    factor_28 = pivoted_cholesky_pairs(eri_28, 28)
+    if factor_28 is None:
+        fail("no pivoted-Cholesky factor of the cc-pVDZ integrals")
+    ham28 = build_sci_hamiltonian(
+        bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
+        bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
+        h1_28, eri_28, 28, (7, 7), device=dev, pad_to=(1024, 1024), eri_factor=factor_28,
+    ).astype(torch.float32)
     cases = {
         "headline": ham32,
         "ragged": build_sci_hamiltonian(
@@ -374,86 +780,76 @@ def main() -> None:
             pad_to=(256, 512)),
         # the headline with 320-column k tiles and 96-row rs tiles
         "tiled": ham32,
+        # the 28-orbital batch at npair 784, with plan()'s tiles, and with
+        # 256-column k tiles and 184-row rs tiles forced
+        "ccpvdz": ham28,
+        "ccpvdz_tiled": ham28,
     }
-    max_err = 0.0
+    forced = {"tiled": (320, 96), "ccpvdz_tiled": (256, 184)}
+    errs = {}
     for name, ham in cases.items():
-        ops = ham.cross_spin_operands()
-        m, n = ham.shape
-        npair = ops.eri.shape[0]
-        tiles = (320, 96) if name == "tiled" else cross_spin.plan(
-            n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
-        c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=dev)
-        out = cross_spin.cross_spin_matvec(c, ops, tiles=tiles)
-        torch.cuda.synchronize()
-        ref = cross_spin.cross_spin_plain(c, ops)
-        err = float((out - ref).abs().max())
-        bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
-        finite = bool(torch.isfinite(out).all())
-        empty = (int((ops.ka_n == 0).sum()), int((ops.kb_n == 0).sum()))
-        print(f"kernel vs plain [{name}] shape {(m, n)} npair {npair} ka {ops.ka_pq.shape[1]} "
-              f"kb {ops.kb_rs.shape[1]}, empty rows/cols {empty}, tiles (cols, rs) {tiles}: "
-              f"{-(-n // tiles[0])} k x {-(-npair // tiles[1])} rs: "
-              f"max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
-        if not finite or err > bound:
-            fail(f"cross_spin_matvec disagrees with its plain version on {name}")
-        if name in ("wide", "tiled") and -(-n // tiles[0]) < 2:
-            fail(f"the {name} case should take several k tiles")
-        max_err = max(max_err, err)
+        errs[name] = check_kernel(name, ham, rng, forced.get(name))
+        if name in ("wide", "tiled", "ccpvdz_tiled"):
+            ops = ham.cross_spin_operands()
+            n, npair = ham.shape[1], ops.eri.shape[0]
+            tiles = forced.get(name) or cross_spin.plan(
+                n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
+            if -(-n // tiles[0]) < 2 or (name == "ccpvdz_tiled" and -(-npair // tiles[1]) < 2):
+                fail(f"the {name} case should take several tiles")
+    del cases
 
-    ops = ham32.cross_spin_operands()
+    headline = time_kernel("headline", ham32, rng, smi)
     c = torch.as_tensor(rng.normal(size=ham32.shape), dtype=torch.float32, device=dev)
-
-    def event_ms(fn, calls=10) -> float:
-        """Per-call device time of ``calls`` back-to-back calls between two events."""
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / calls
-
-    def run_kernel():
-        cross_spin.cross_spin_matvec(c, ops)
-
-    def run_plain():
-        cross_spin.cross_spin_plain(c, ops)
-
-    run_kernel(), run_plain()  # warm
-    kernel_ms, plain_ms = [], []
-    for _ in range(10):  # in turns: plain, kernel, kernel, plain
-        plain_ms.append(event_ms(run_plain))
-        kernel_ms.append(event_ms(run_kernel))
-        kernel_ms.append(event_ms(run_kernel))
-        plain_ms.append(event_ms(run_plain))
-    t_kernel, t_plain = float(np.median(kernel_ms)), float(np.median(plain_ms))
-    print(f"timing at {tuple(c.shape)}, npair 256 ({smi}): kernel {t_kernel:.4f} ms, "
-          f"plain {t_plain:.4f} ms (per call: medians of 20 rounds of 10 calls, CUDA events)",
-          flush=True)
-    # the least time for the same work: every valid (alpha pair, beta pair)
-    # couple is one FMA; every input is read once and the output written once
-    flops = 2.0 * float(ops.ka_n.sum()) * float(ops.kb_n.sum())
-    moved = [c, c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
-             ops.kb_n, ops.kb_rs, ops.kb_src, ops.kb_sgn, ops.eri]
-    nbytes = float(sum(t.numel() * t.element_size() for t in moved))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"bound at the headline: {flops / 1e9:.4f} GFLOP at 67 TFLOP/s = {t_ops:.5f} ms, "
-          f"{nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms "
-          f"by {bound_by}; kernel at {bound_ms / t_kernel:.2%} of it "
-          f"({flops / t_kernel / 1e9:.3f} TFLOP/s)", flush=True)
     matvec_ms = [event_ms(lambda: ham32.matvec(c)) for _ in range(20)]
     print(f"f32 matvec at {tuple(c.shape)}: {float(np.median(matvec_ms)):.4f} ms "
           f"(medians of 20 rounds of 10 calls, CUDA events)", flush=True)
+    ccpvdz = time_kernel("ccpvdz", ham28, rng, smi, rounds=5)
+    # one f32 matvec at npair 784 by each route: the kernel (matvec) and the
+    # Cholesky-factored contraction (_matvec_full with the factor attached)
+    c28 = torch.as_tensor(rng.normal(size=ham28.shape), dtype=torch.float32, device=dev)
+    with highest_precision():
+        by_kernel, by_factor = ham28.matvec(c28), ham28._matvec_full(c28)
+        route_err = float((by_kernel - by_factor).abs().max())
+        route_tol = TOL_KERNEL * max(float(by_factor.abs().max()), 1.0)
+        kernel_route = [event_ms(lambda: ham28.matvec(c28), 5) for _ in range(5)]
+        factor_route = [event_ms(lambda: ham28._matvec_full(c28), 5) for _ in range(5)]
+    print(f"f32 matvec at {tuple(c28.shape)}, npair 784 ({smi}): kernel route "
+          f"{float(np.median(kernel_route)):.4f} ms, factored route (rank "
+          f"{factor_28.shape[0]}) {float(np.median(factor_route)):.4f} ms (medians of 5 rounds "
+          f"of 5 calls, CUDA events); routes differ by {route_err:.3e} (bound {route_tol:.3e})",
+          flush=True)
+    if route_err > route_tol:
+        fail("the kernel and factored f32 matvecs disagree at npair 784")
+    del ham28, c28, by_kernel, by_factor
+    # both blocked f64 variants against _matvec_full on the headline operator
+    # forced to col_block 128, bare and with the spin penalty
+    c64 = torch.as_tensor(rng.normal(size=ham64.shape), dtype=torch.float64, device=dev)
+    for label, spin in (("bare", {}), ("spin_penalty", {"spin_shift": 0.35, "spin_target": 2.0})):
+        blocked = build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=dev,
+                                        pad_to=(1024, 1024), col_block=128, **spin)
+        full = blocked._matvec_full(c64)
+        scale = max(float(full.abs().max()), 1.0)
+        line = [f"f64 _matvec_full {np.median([event_ms(lambda: blocked._matvec_full(c64), 3) for _ in range(3)]):.3f} ms"]
+        for name in BLOCKED_VARIANTS:
+            diff = float((getattr(blocked, name)(c64) - full).abs().max())
+            ms = np.median([event_ms(lambda: getattr(blocked, name)(c64), 3) for _ in range(3)])
+            line.append(f"{name.split('__')[-1]} {ms:.3f} ms, max|diff| {diff:.3e}")
+            if diff > 1e-12 * scale:
+                fail(f"{name} disagrees with _matvec_full ({label})")
+        print(f"blocked f64 matvecs [{label}] at {tuple(c64.shape)}, col_block 128 ({smi}): "
+              f"{'; '.join(line)} (bound {1e-12 * scale:.3e}; medians of 3 rounds of 3 calls)",
+              flush=True)
+    del blocked, full, c64
+    torch.cuda.empty_cache()
 
     # -- 4. Davidson on the headline operator --------------------------------
     hd32 = ham32.hdiag.reshape(-1)
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     v0 = davidson_initial_guess(hd32, torch.float32)
     res = davidson_ground_state(
         sci_matvec_flat, ham32, hd32, v0, tol=1e-3, max_subspace=24, max_iterations=200)
-    torch.cuda.synchronize()
+    sync()
     t_dav = time.perf_counter() - t0
     print(f"davidson f32: {res.iterations} iterations, residual {res.residual_norm:.3e}, "
           f"theta {res.theta + ecore:.10f} Ha, {t_dav:.3f} s", flush=True)
@@ -462,10 +858,10 @@ def main() -> None:
 
     # -- 5. the slice: solve_sci on the headline problem ---------------------
     cross_spin.cross_spin_matvec.launches = 0
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     result = solve_sci((strs_a, strs_b), h1, eri, norb, nelec, device="cuda")
-    torch.cuda.synchronize()
+    sync()
     t_solve = time.perf_counter() - t0
     launches = cross_spin.cross_spin_matvec.launches
     amps = result.sci_state.amplitudes
@@ -488,8 +884,13 @@ def main() -> None:
     for what, ok in checks.items():
         if not ok:
             fail(what)
+    del ham32, ham64
 
+    # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
     loop_launches = sqd_loop_phase(dev, smi, h1, eri, ecore)
+    casci_launches, casci, casci_err = casci_phase(dev, smi, h1, eri, ecore, rng)
+    ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
+    ccpvdz["max_abs_err"] = errs["ccpvdz"]
 
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
@@ -498,12 +899,15 @@ def main() -> None:
         "replaces": "sqd_tpu/ops/pallas_matvec.py:167",
         "launches": launches,
         "launches_sqd_loop": loop_launches,
-        "max_abs_err": max_err,
-        "ms": t_kernel,
-        "plain_ms": t_plain,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches_casci": casci_launches,
+        "launches_ccpvdz_loop": ccpvdz_launches,
+        "max_abs_err": max(*errs.values(), casci_err),
+        "ms": headline["ms"],
+        "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"],
+        "bound_by": headline["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this contraction
+        "at_shapes": {"ccpvdz": ccpvdz, "casci": casci},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

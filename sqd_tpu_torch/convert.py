@@ -4,7 +4,10 @@
 The fields arrive as numpy arrays, so nothing here imports ``sqd_tpu``::
 
     fields = {k: np.asarray(getattr(ham_jax, k)) for k in FIELDS}
-    ham = hamiltonian_from_numpy(fields, norb=..., nelec=..., device="cuda")
+    if ham_jax.eri_chol is not None:
+        fields["eri_chol"] = np.asarray(ham_jax.eri_chol)
+    ham = hamiltonian_from_numpy(fields, norb=..., nelec=...,
+                                 col_block=ham_jax.col_block, device="cuda")
 """
 
 from __future__ import annotations
@@ -14,13 +17,14 @@ import torch
 
 from .ops.hamiltonian import SCIHamiltonian
 
-__all__ = ["FIELDS", "hamiltonian_from_numpy"]
+__all__ = ["FIELDS", "OPTIONAL_FIELDS", "hamiltonian_from_numpy"]
 
 FIELDS = (
     "src_a", "sign_a", "src_b", "sign_b",
     "nbr_idx_a", "nbr_val_a", "nbr_idx_b", "nbr_val_b",
     "eri_t", "hdiag",
 )
+OPTIONAL_FIELDS = ("eri_chol",)
 _INDEX_FIELDS = ("src_a", "src_b", "nbr_idx_a", "nbr_idx_b")
 _SIGN_FIELDS = ("sign_a", "sign_b")
 
@@ -38,12 +42,14 @@ def hamiltonian_from_numpy(
     """The port's :class:`SCIHamiltonian` from ``sqd_tpu`` operator fields.
 
     Index tables become int64 and signs int8; the float payload keeps its
-    dtype.  Missing or extra fields raise ``KeyError``.
+    dtype.  ``FIELDS`` are required and ``OPTIONAL_FIELDS`` may be given;
+    missing or unknown fields raise ``KeyError``.
     """
-    if set(fields) != set(FIELDS):
-        raise KeyError(f"expected fields {sorted(FIELDS)}, got {sorted(fields)}")
+    if not set(FIELDS) <= set(fields) <= set(FIELDS + OPTIONAL_FIELDS):
+        raise KeyError(f"expected fields {sorted(FIELDS)} and optionally "
+                       f"{sorted(OPTIONAL_FIELDS)}, got {sorted(fields)}")
     tensors = {}
-    for name in FIELDS:
+    for name in fields:
         arr = np.asarray(fields[name])
         if name in _INDEX_FIELDS:
             arr = arr.astype(np.int64)

@@ -17,8 +17,8 @@ Every entry point runs on the card (``device="cuda"``) unless the caller
 passes another device; a CUDA request without a card raises.  Not ported yet
 (ROADMAP.md), and raising ``NotImplementedError``: the loop's
 ``checkpoint_path``, ``SCIState.save``/``load``, :func:`solve_sci_excited`,
-:func:`optimize_orbitals`, :func:`enlarge_batch_from_transitions`, the dense
-density-fitted operator and the Cholesky-factored contraction.
+:func:`optimize_orbitals`, :func:`enlarge_batch_from_transitions` and the
+dense density-fitted operator (``matvec_strategy="dense_df"``).
 """
 
 from __future__ import annotations
@@ -259,10 +259,13 @@ def solve_sci(
         table_cache: an :class:`~sqd_tpu_torch.ops.table_cache.TableCache`
             reused across solves on the same integrals (same tables, less
             host work).
-        eri_factor: a Cholesky factor (explicit, or ``"auto"`` with
-            ``norb**2 > 256``) is not ported yet and raises
-            ``NotImplementedError``; pass ``eri_factor=None`` to solve such a
-            problem with the exact integrals.
+        eri_factor: forwarded to :func:`build_sci_hamiltonian`: ``"auto"``
+            attaches a pivoted-Cholesky factor when ``norb**2 > 256`` and
+            the integrals are PSD at rank ``<= norb**2 // 3``; an explicit
+            ``(X, norb**2)`` array is attached as given; ``None`` attaches
+            none.  Only f32 contractions outside the CUDA kernel use it; the
+            Davidson's f32 matvec on the card goes through the kernel and
+            the exact integrals, and f64 always uses them.
         **kwargs: ignored extras for signature compatibility.
 
     Returns:

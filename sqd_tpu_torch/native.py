@@ -61,6 +61,12 @@ def load() -> ctypes.CDLL:
         _u32p, _i64, _int, _int, _int, _f64p, _f64p, _u32p, _f64p, _i64,
     ]
     lib.samespin_values.restype = None
+    lib.samespin_sparse_count.argtypes = [_u32p, _i64, _int, _int, _int, _f64p, _f64p, _i64p]
+    lib.samespin_sparse_count.restype = ctypes.c_int64
+    lib.samespin_sparse_fill.argtypes = [
+        _u32p, _i64, _int, _int, _int, _f64p, _f64p, _i32p, _f64p, _i64,
+    ]
+    lib.samespin_sparse_fill.restype = None
     return lib
 
 
@@ -137,29 +143,39 @@ def samespin_values(strs_packed, h1e, eri, norb: int, nelec: int):
     return nbr, val
 
 
-def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int):
+def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int, *, algo: str = "auto"):
     """Compacted Slater-Condon neighbour lists ``(idx (n, L) int32, val (n, L) f64)``.
 
-    The ``"enum"`` algorithm of ``sqd_tpu.native.samespin_tables``, with its
-    compaction to a width bucketed by 8 reproduced bit for bit.  Where
-    ``sqd_tpu`` switches to its intersection-driven ``"sparse"`` algorithm
-    (``n * width_full`` above 4M probes) the port raises: not ported yet.
+    ``sqd_tpu.native.samespin_tables``, bit for bit, with its two algorithms:
+
+    * ``"enum"``: every one of the ``width_full`` candidate excitations of
+      each string, binary-searched in the set, then compacted to a width
+      bucketed by 8;
+    * ``"sparse"``: two strings are singly (doubly) connected iff they share
+      a one-hole (two-hole) core, so sorting the cores groups exactly the
+      connected pairs; the work follows the output, not ``width_full``.
+
+    ``"auto"`` takes ``"sparse"`` once ``n * width_full`` passes 4M probes.
     """
     strs_packed = np.ascontiguousarray(strs_packed, dtype=np.uint32)
     n, w = strs_packed.shape
     width_full = samespin_width(norb, nelec)
-    if n * width_full > 4_000_000:
-        raise NotImplementedError(
-            "the 'sparse' same-spin table algorithm (n * width_full > 4M) is not "
-            "ported yet; see ROADMAP.md"
-        )
+    if algo not in ("auto", "enum", "sparse"):
+        raise ValueError(f"unknown samespin algo {algo!r}")
+    h1c = np.ascontiguousarray(h1e, np.float64)
+    eric = np.ascontiguousarray(eri, np.float64)
+    lib = load()
+    if algo == "sparse" or (algo == "auto" and n * width_full > 4_000_000):
+        counts = np.empty(n, dtype=np.int64)
+        most = int(lib.samespin_sparse_count(strs_packed, n, w, norb, nelec, h1c, eric, counts))
+        width = min(width_full, max(8, -(-most // 8) * 8))
+        idx = np.zeros((n, width), dtype=np.int32)
+        val = np.zeros((n, width), dtype=np.float64)
+        lib.samespin_sparse_fill(strs_packed, n, w, norb, nelec, h1c, eric, idx, val, width)
+        return idx, val
     idx = np.empty((n, width_full), dtype=np.int32)
     val = np.empty((n, width_full), dtype=np.float64)
-    load().samespin_candidates(
-        strs_packed, n, w, norb, nelec,
-        np.ascontiguousarray(h1e, np.float64), np.ascontiguousarray(eri, np.float64),
-        idx, val, width_full,
-    )
+    lib.samespin_candidates(strs_packed, n, w, norb, nelec, h1c, eric, idx, val, width_full)
     return compact_neighbours(idx, val)
 
 

@@ -58,6 +58,7 @@ NVCC_FLAGS = [
 ]
 SMEM_BYTES = 232_448  # shared memory one block may use on Hopper (kMaxSmem in the source)
 MIN_TILE_COLS = 256  # columns of c staged beside the whole of A before the rs axis is tiled
+PLAIN_CHUNK_BYTES = 2 * 1024**3  # largest (npair, rows, N) f32 intermediate of the plain version
 
 
 @dataclass(frozen=True)
@@ -144,15 +145,26 @@ def prepare(src_a, sign_a, src_b, sign_b, eri) -> CrossSpinOperands:
 
 
 def cross_spin_plain(c: torch.Tensor, ops: CrossSpinOperands) -> torch.Tensor:
-    """The plain PyTorch version, in f32: gather, one matmul, gather back."""
+    """The plain PyTorch version, in f32: gather, one matmul, gather back.
+
+    Output rows are independent, so the ``(npair, rows, N)`` intermediates
+    are built for at most ``PLAIN_CHUNK_BYTES`` at a time.
+    """
     npair = ops.eri.shape[0]
     m, n = c.shape
     c = c.to(torch.float32)
-    with highest_precision():
-        d = ops.sign_a[:, :, None] * c[ops.src_a]  # (npair, M, N)
-        g = (ops.eri @ d.reshape(npair, m * n)).reshape(npair, m, n)
-    picked = torch.gather(g, 2, ops.src_b[:, None, :].expand(npair, m, n))
-    return (ops.sign_b[:, None, :] * picked).sum(dim=0)
+    step = max(1, min(m, PLAIN_CHUNK_BYTES // (4 * npair * n)))
+    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
+    for i0 in range(0, m, step):
+        rows = slice(i0, i0 + step)
+        with highest_precision():
+            d = ops.sign_a[:, rows, None] * c[ops.src_a[:, rows]]  # (npair, r, N)
+            r = d.shape[1]
+            g = (ops.eri @ d.reshape(npair, r * n)).reshape(npair, r, n)
+        del d
+        picked = torch.gather(g, 2, ops.src_b[:, None, :].expand(npair, r, n))
+        out[rows] = (ops.sign_b[:, None, :] * picked).sum(dim=0)
+    return out
 
 
 def row_stride(ka: int) -> int:

@@ -9,8 +9,10 @@ Cartesian product, the projected Hamiltonian splits exactly into
 * ``H_ab = sum_pqrs (pq|rs) E^a_pq E^b_rs`` (opposite spin): per-pair gathers,
   one matmul over the ``norb^2`` pair axis, gathers back.  In f32 it runs
   through :mod:`sqd_tpu_torch.ops.cross_spin` (the CUDA kernel on the card);
-  in f64 through :meth:`SCIHamiltonian._matvec_full`, as ``sqd_tpu`` sends
-  f64 to XLA and only f32 to its Pallas kernel.
+  in f64 through :meth:`SCIHamiltonian._matvec_full`, or past
+  ``sqd_tpu``'s size budget through the column-blocked
+  :meth:`SCIHamiltonian._matvec_blocked`, as ``sqd_tpu`` sends f64 to XLA
+  and only f32 to its Pallas kernel.
 * ``H_aa`` / ``H_bb`` (same spin): padded Slater-Condon neighbour lists
   applied as row/column gathers.
 
@@ -20,6 +22,9 @@ they stay exactly zero through the Krylov iteration.
 
 Index tables are stored as int64 — the dtype torch's gathers take — once at
 build time, never converted per matvec.
+
+The blocking thresholds below are ``sqd_tpu``'s, sized for a TPU's memory,
+and kept so that the port takes ``sqd_tpu``'s path for every shape.
 """
 
 from __future__ import annotations
@@ -40,8 +45,32 @@ __all__ = [
     "build_sci_basis",
     "build_sci_hamiltonian",
     "expectation_value",
+    "pivoted_cholesky_pairs",
     "sci_matvec_flat",
 ]
+
+# Padded M*N from which the f64 diagonal is assembled on the device from its
+# rank-structured parts instead of being uploaded whole.
+DEVICE_DIAG_MIN_ELEMS = 4_000_000
+# Column blocking of the f64 cross-spin channel: unblocked up to this many
+# (npair x M x N) elements; past it, blocks of about COL_BLOCK_TILE_ELEMS,
+# at least 128 columns unless one block would pass COL_BLOCK_CAP_ELEMS.
+COL_BLOCK_BUDGET_ELEMS = 320 * 1024 * 1024
+COL_BLOCK_TILE_ELEMS = 48 * 1024 * 1024
+COL_BLOCK_CAP_ELEMS = 144 * 1024 * 1024
+# Largest full (M, N, npair) G buffer of the two-pass blocked matvec; past it
+# the beta-first single pass runs.
+TWO_PASS_G_BYTES = 4 * 1024**3
+# Largest gathered neighbour tensor of a same-spin channel.  XLA fuses that
+# gather into its contraction; torch materialises it, so above this size the
+# channel runs in column (alpha) or row (beta) chunks.
+SAMESPIN_CHUNK_BYTES = 1024**3
+
+
+def _chunk(total: int, bytes_per_item: int) -> int:
+    """Items per chunk so that a chunk's gathered tensor stays within
+    ``SAMESPIN_CHUNK_BYTES`` (``total`` when everything fits)."""
+    return max(1, min(total, SAMESPIN_CHUNK_BYTES // max(bytes_per_item, 1)))
 
 
 def _qp_perm_np(norb: int) -> np.ndarray:
@@ -127,9 +156,13 @@ class SCIHamiltonian(SCIBasis):
     nbr_val_b: torch.Tensor = None  # (N, Lb)
     eri_t: torch.Tensor = None  # (npair, npair): eri_t[rs, pq] = (pq|rs)
     hdiag: torch.Tensor = None  # (M, N)
+    # optional pivoted-Cholesky factor L (X, npair) of the PSD pair matrix
+    # V[pq, rs] = (pq|rs) = (L^T L)[pq, rs]: f32 contractions outside the
+    # kernel go through it; f64 always uses the exact eri_t
+    eri_chol: torch.Tensor | None = None
     spin_shift: float = 0.0  # penalty shift * (S^2 - spin_target); 0 disables
     spin_target: float = 0.0
-    col_block: int = 0  # beta-column block of the f64 path; > 0 is not ported
+    col_block: int = 0  # beta-column block of the f64 cross-spin channel; 0 = unblocked
 
     def astype(self, dtype: torch.dtype) -> "SCIHamiltonian":
         """Cast the floating-point payload once (so matvecs avoid per-call casts)."""
@@ -139,7 +172,24 @@ class SCIHamiltonian(SCIBasis):
             nbr_val_a=self.nbr_val_a.to(dtype),
             nbr_val_b=self.nbr_val_b.to(dtype),
             hdiag=self.hdiag.to(dtype),
+            eri_chol=None if self.eri_chol is None else self.eri_chol.to(dtype),
         )
+
+    def _use_chol(self, dtype: torch.dtype) -> bool:
+        """The factored contraction is for f32 only."""
+        return self.eri_chol is not None and dtype == torch.float32
+
+    def _chol_left(self, flat: torch.Tensor) -> torch.Tensor:
+        """``V @ flat`` through the factor.  ``V`` is symmetric (the factor is
+        attached only to a symmetric PSD pair matrix), so this also serves
+        the ``eri_t.T @ flat`` of the blocked paths."""
+        lf = self.eri_chol.to(flat.dtype)
+        return lf.T @ (lf @ flat)
+
+    def _chol_right(self, flat: torch.Tensor) -> torch.Tensor:
+        """``flat @ V`` through the factor."""
+        lf = self.eri_chol.to(flat.dtype)
+        return (flat @ lf.T) @ lf
 
     def cross_spin_operands(self) -> cross_spin.CrossSpinOperands:
         """The f32 cross-spin operands with the penalty folded into ``eri``.
@@ -161,30 +211,46 @@ class SCIHamiltonian(SCIBasis):
         return ops
 
     def apply_samespin_alpha(self, c: torch.Tensor) -> torch.Tensor:
-        """``(H_aa (x) I) c`` via the neighbour list (row gathers)."""
-        picked = c[self.nbr_idx_a]  # (M, La, N)
-        return torch.einsum("jl,jln->jn", self.nbr_val_a.to(c.dtype), picked)
+        """``(H_aa (x) I) c`` via the neighbour list (row gathers), in column
+        chunks when the gathered ``(M, La, N)`` tensor would be too large."""
+        vals = self.nbr_val_a.to(c.dtype)
+        m, n = c.shape
+        step = _chunk(n, m * self.nbr_idx_a.shape[1] * c.element_size())
+        if step == n:
+            return torch.einsum("jl,jln->jn", vals, c[self.nbr_idx_a])
+        out = torch.empty_like(c)
+        for j0 in range(0, n, step):
+            picked = c[:, j0 : j0 + step][self.nbr_idx_a]  # (M, La, step)
+            out[:, j0 : j0 + step] = torch.einsum("jl,jln->jn", vals, picked)
+        return out
 
     def apply_samespin_beta(self, c: torch.Tensor) -> torch.Tensor:
-        """``(I (x) H_bb) c`` via the neighbour list (column gathers)."""
-        picked = c[:, self.nbr_idx_b]  # (M, N, Lb)
-        return torch.einsum("kl,mkl->mk", self.nbr_val_b.to(c.dtype), picked)
+        """``(I (x) H_bb) c`` via the neighbour list (column gathers), in row
+        chunks when the gathered ``(M, N, Lb)`` tensor would be too large."""
+        vals = self.nbr_val_b.to(c.dtype)
+        m, n = c.shape
+        step = _chunk(m, n * self.nbr_idx_b.shape[1] * c.element_size())
+        if step == m:
+            return torch.einsum("kl,mkl->mk", vals, c[:, self.nbr_idx_b])
+        out = torch.empty_like(c)
+        for i0 in range(0, m, step):
+            picked = c[i0 : i0 + step][:, self.nbr_idx_b]  # (step, N, Lb)
+            out[i0 : i0 + step] = torch.einsum("kl,mkl->mk", vals, picked)
+        return out
 
     def matvec(self, c: torch.Tensor) -> torch.Tensor:
         """``sigma = (P H P) c`` (+ the spin penalty if configured).
 
         f32 goes through the cross-spin kernel wrapper (the Pallas dispatch of
-        ``sqd_tpu``, which also takes only f32); every other dtype through
-        :meth:`_matvec_full`.
+        ``sqd_tpu``, which also takes only f32; the kernel covers every
+        shape); every other dtype through :meth:`_matvec_blocked` when the
+        operator is column-blocked, else :meth:`_matvec_full`.
         """
         with highest_precision():
             if c.dtype == torch.float32:
                 return self._matvec_kernel(c)
             if self.col_block and c.shape[1] > self.col_block:
-                raise NotImplementedError(
-                    "the column-blocked matvec (col_block > 0) is not ported yet; "
-                    "see ROADMAP.md"
-                )
+                return self._matvec_blocked(c)
             return self._matvec_full(c)
 
     def _matvec_kernel(self, c: torch.Tensor) -> torch.Tensor:
@@ -200,13 +266,152 @@ class SCIHamiltonian(SCIBasis):
         npair = self.norb * self.norb
         d_a = self.gather_alpha(c)  # (npair, M, N)
         # cross-spin: sigma_ab = sum_rs E^b_rs [ sum_pq (pq|rs) E^a_pq c ]
-        g = (self.eri_t.to(c.dtype) @ d_a.reshape(npair, m * n)).reshape(npair, m, n)
+        flat = d_a.reshape(npair, m * n)
+        if self._use_chol(c.dtype):
+            g = self._chol_left(flat).reshape(npair, m, n)
+        else:
+            g = (self.eri_t.to(c.dtype) @ flat).reshape(npair, m, n)
         sigma = self.scatter_beta(g)
         del g
         sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
         if self.spin_shift != 0.0:
             s2c = self.s2_apply_from_alpha(d_a, c)
             sigma = sigma + self.spin_shift * (s2c - self.spin_target * c)
+        return sigma
+
+    def _matvec_blocked(self, c: torch.Tensor) -> torch.Tensor:
+        """Column-blocked application; the variant is chosen by the G buffer.
+
+        The alpha-first two pass keeps a full ``(M, N, npair)`` G buffer; past
+        ``TWO_PASS_G_BYTES`` the beta-first single pass runs, which holds
+        only one column block's intermediates at a time.
+        """
+        m, n = c.shape
+        g_bytes = self.norb * self.norb * m * n * c.element_size()
+        with highest_precision():
+            if g_bytes <= TWO_PASS_G_BYTES:
+                return self.__matvec_blocked(c)
+            return self.__matvec_blocked_beta_first_rowmajor(c)
+
+    def _block_size(self, n: int) -> int:
+        cb = self.col_block
+        if n % cb:
+            raise ValueError(f"N = {n} must be a multiple of col_block = {cb}")
+        return cb
+
+    def _s2_penalty_tables(self, dtype):
+        """Beta tables at the qp-permuted pairs (the penalty's mixed term)."""
+        perm = torch.as_tensor(self._qp_perm(), device=self.src_b.device)
+        return self.src_b[perm], self.sign_b[perm].to(dtype)
+
+    def __matvec_blocked_beta_first_rowmajor(self, c: torch.Tensor) -> torch.Tensor:
+        """Beta-first single pass: per column block, gather the beta side from
+        rows of ``c.T``, contract the pair axis, and pick the alpha side through
+        each alpha row's compacted valid pairs (``ka`` of them)."""
+        dt = c.dtype
+        m, n = c.shape
+        npair = self.norb * self.norb
+        cb = self._block_size(n)
+        ct = c.T.contiguous()  # (n, m): the beta gathers read contiguous rows
+        sign_a_f = self.sign_a.to(dt)
+        sign_b_f = self.sign_b.to(dt)
+        # per alpha row, its valid pairs as flat row indices into
+        # g2.reshape(npair * m, cb)
+        n_a = int(self.nelec[0])
+        ka = min(npair, n_a * (self.norb - n_a + 1))
+        valid_a = self.sign_a != 0  # (npair, M)
+        order_a = torch.argsort((~valid_a).to(torch.uint8), dim=0, stable=True)[:ka]
+        ok_a = torch.gather(valid_a, 0, order_a)
+        src_sel = torch.gather(self.src_a, 0, order_a)
+        flat_rows = (order_a * m + src_sel).T.reshape(-1)  # (M * ka,)
+        sign_sel = torch.where(ok_a, torch.gather(sign_a_f, 0, order_a), 0.0).T  # (M, ka)
+        nbr_val_a_f = self.nbr_val_a.to(dt)
+        nbr_val_b_f = self.nbr_val_b.to(dt)
+        eri_m = self.eri_t.to(dt).T  # [pq, rs] = (pq|rs)
+        with_penalty = self.spin_shift != 0.0
+        if with_penalty:
+            src_qp, sign_qp = self._s2_penalty_tables(dt)
+            src_a_idx = self.src_a[:, :, None].expand(npair, m, cb)
+        sigma = torch.empty((m, n), dtype=dt, device=c.device)
+        for b0 in range(0, n, cb):
+            cols = slice(b0, b0 + cb)
+            # D_b in (npair, cb, m): row gathers of ct
+            db = ct[self.src_b[:, cols]] * sign_b_f[:, cols, None]
+            flat = db.reshape(npair, cb * m)
+            del db
+            g2 = self._chol_left(flat) if self._use_chol(dt) else eri_m @ flat
+            del flat
+            # (npair, m, cb), so that the alpha pick reads contiguous cb-runs
+            g2 = g2.reshape(npair, cb, m).transpose(1, 2).contiguous()
+            picked = g2.reshape(npair * m, cb)[flat_rows]  # (M * ka, cb)
+            del g2
+            sig = torch.einsum("mk,mkc->mc", sign_sel, picked.reshape(m, ka, cb))
+            del picked
+            c_blk = c[:, cols]
+            sig += torch.einsum("jl,jlc->jc", nbr_val_a_f, c_blk[self.nbr_idx_a])
+            # same-spin beta of these output columns: row gathers of ct
+            picked_b = ct[self.nbr_idx_b[cols]]  # (cb, Lb, m)
+            sig += torch.einsum("kl,klm->mk", nbr_val_b_f[cols], picked_b)
+            del picked_b
+            if with_penalty:
+                # mixed term: c picked at the qp-permuted beta columns, then
+                # at the alpha sources along m
+                picked_m = ct[src_qp[:, cols]].transpose(1, 2)  # (npair, m, cb)
+                picked_m = torch.gather(picked_m, 1, src_a_idx)
+                mixed = torch.einsum(
+                    "pj,pc,pjc->jc", sign_a_f, sign_qp[:, cols], picked_m)
+                del picked_m
+                sig += self.spin_shift * (
+                    (self._s2_const() - self.spin_target) * c_blk - mixed)
+            sigma[:, cols] = sig
+        return sigma
+
+    def __matvec_blocked(self, c: torch.Tensor) -> torch.Tensor:
+        """Alpha-first two pass: pass 1 contracts each column block's alpha
+        gathers into the full ``(M, N, npair)`` G buffer; pass 2 picks the
+        beta side out of it, block by block."""
+        dt = c.dtype
+        m, n = c.shape
+        npair = self.norb * self.norb
+        cb = self._block_size(n)
+        sign_a_f = self.sign_a.to(dt)
+        eri_m = self.eri_t.to(dt).T  # [pq, rs] = (pq|rs)
+        with_penalty = self.spin_shift != 0.0
+        gt = torch.empty((m, n, npair), dtype=dt, device=c.device)
+        dat = torch.empty((m, n, npair), dtype=dt, device=c.device) if with_penalty else None
+        for b0 in range(0, n, cb):
+            cols = slice(b0, b0 + cb)
+            d = sign_a_f[:, :, None] * c[:, cols][self.src_a]  # (npair, m, cb)
+            d_t = d.permute(1, 2, 0)  # (m, cb, npair)
+            flat = d_t.reshape(m * cb, npair)
+            g_blk = self._chol_right(flat) if self._use_chol(dt) else flat @ eri_m
+            gt[:, cols] = g_blk.reshape(m, cb, npair)
+            if with_penalty:
+                dat[:, cols] = d_t
+        if with_penalty:
+            src_qp, sign_qp = self._s2_penalty_tables(dt)
+        sign_b_f = self.sign_b.to(dt)
+        nbr_val_a_f = self.nbr_val_a.to(dt)
+        nbr_val_b_f = self.nbr_val_b.to(dt)
+        pairs = torch.arange(npair, device=c.device)[None, :]
+        sigma = torch.empty((m, n), dtype=dt, device=c.device)
+        for b0 in range(0, n, cb):
+            cols = slice(b0, b0 + cb)
+            # cross-spin: sum_rs sign_b[rs, col] * G'[j, src_b[rs, col], rs]
+            picked = gt[:, self.src_b[:, cols].T, pairs]  # (m, cb, npair)
+            sig = torch.einsum("jcr,rc->jc", picked, sign_b_f[:, cols])
+            del picked
+            blk = c[:, cols]
+            sig += torch.einsum("jl,jlc->jc", nbr_val_a_f, blk[self.nbr_idx_a])
+            # same-spin beta of these output columns (gathers across blocks)
+            picked_b = c[:, self.nbr_idx_b[cols]]  # (m, cb, Lb)
+            sig += torch.einsum("kl,mkl->mk", nbr_val_b_f[cols], picked_b)
+            if with_penalty:
+                picked_s2 = dat[:, src_qp[:, cols].T, pairs]
+                mixed = torch.einsum("jcr,rc->jc", picked_s2, sign_qp[:, cols])
+                sig += self.spin_shift * (
+                    self._s2_const() * blk - mixed - self.spin_target * blk)
+            sigma[:, cols] = sig
         return sigma
 
 
@@ -262,17 +467,71 @@ def _hdiag_parts_np(occ_a, occ_b, h1e, eri):
     return a_part, b_part, w
 
 
+def _hdiag_device(a_part, b_part, occ_a, w, *, dtype) -> torch.Tensor:
+    """The exact ``(M, N)`` diagonal assembled on the parts' device.
+
+    ``hd[i, j] = a_part[i] + b_part[j] + sum_p occ_a[i, p] * w[j, p]``, with
+    the ``norb`` adds in ``sqd_tpu``'s order: ``occ_a`` is 0/1, so every
+    product is exact and each add rounds once, as on the host.
+    """
+    acc = a_part[:, None] + b_part[None, :]
+    for p in range(occ_a.shape[1]):
+        acc.addcmul_(occ_a[:, p : p + 1], w[None, :, p])
+    return acc.to(dtype)
+
+
+def pivoted_cholesky_pairs(
+    eri: np.ndarray, norb: int, *, tol: float = 1e-13, max_rank: int | None = None
+) -> np.ndarray | None:
+    """Pivoted Cholesky factor ``L (X, npair)`` of ``V[pq, rs] = (pq|rs)``
+    (a NumPy copy of ``sqd_tpu``'s): ``V = L^T L`` to ``tol`` relative.
+
+    ``None`` when ``V`` is not symmetric PSD to ``tol``, when ``max_rank``
+    runs out before convergence, or when the reconstruction check fails.
+    """
+    npair = norb * norb
+    v = np.asarray(eri, np.float64).reshape(npair, npair)
+    if not np.array_equal(v, v.T) and not np.allclose(v, v.T, atol=1e-12, rtol=0.0):
+        return None
+    d = np.diagonal(v).copy()
+    d0 = float(d.max(initial=0.0))
+    if d0 <= 0.0:
+        return None
+    cap = npair if max_rank is None else int(max_rank)
+    ell = np.zeros((cap, npair))
+    k = 0
+    converged = False
+    while k < cap:
+        p = int(np.argmax(d))
+        piv = float(d[p])
+        if piv <= tol * d0:
+            converged = True
+            break
+        row = v[p] - ell[:k, p] @ ell[:k]
+        ell[k] = row / np.sqrt(piv)
+        d -= ell[k] * ell[k]
+        d[p] = 0.0
+        k += 1
+    if not converged and float(d.max(initial=0.0)) > tol * d0:
+        return None
+    ell = ell[:k].copy()
+    if k == 0:
+        return None
+    # the recursion assumes PSD: check the reconstruction before trusting it
+    err = float(np.abs(ell.T @ ell - v).max())
+    if err > 100.0 * tol * d0:
+        return None
+    return ell
+
+
 def _auto_col_block(npair: int, m_pad: int, n_pad: int) -> int:
     """Beta-column block size of ``sqd_tpu``'s cross-spin channel (0 = unblocked)."""
-    budget_elems = 320 * 1024 * 1024
-    if npair * m_pad * n_pad <= budget_elems:
+    if npair * m_pad * n_pad <= COL_BLOCK_BUDGET_ELEMS:
         return 0
-    blk_elems = 48 * 1024 * 1024
-    cb = max(128, min(n_pad, blk_elems // (npair * m_pad)))
+    cb = max(128, min(n_pad, COL_BLOCK_TILE_ELEMS // (npair * m_pad)))
     cb = max(128, (cb // 128) * 128)
-    hard_cap_elems = 144 * 1024 * 1024
-    if npair * m_pad * cb > hard_cap_elems:
-        cb = max(8, (hard_cap_elems // (npair * m_pad) // 8) * 8)
+    if npair * m_pad * cb > COL_BLOCK_CAP_ELEMS:
+        cb = max(8, (COL_BLOCK_CAP_ELEMS // (npair * m_pad) // 8) * 8)
     return cb if cb < n_pad else 0
 
 
@@ -323,46 +582,55 @@ def build_sci_hamiltonian(
     spin_target: float = 0.0,
     dtype: torch.dtype = torch.float64,
     pad_to: tuple[int, int] | None = None,
+    col_block: int | str = "auto",
     table_cache=None,
     eri_factor: np.ndarray | str | None = "auto",
 ) -> SCIHamiltonian:
     """Assemble the projected Hamiltonian on ``device`` from native host tables.
 
-    The native branch of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``
-    with its default ``col_block="auto"``: the same padding (``pad_to``;
-    clamped tables extended with zero weights, padded diagonal entries at
-    1e30) and the same automatic column-block / alignment rule.  The diagonal
-    is always assembled on the host in f64.  A ``table_cache``
-    (:class:`sqd_tpu_torch.ops.table_cache.TableCache`) supplies the tables
-    where ``sqd_tpu`` would use it: packed width <= 2 words and at most 4096
-    same-spin candidates per string on both spins; the tables are the same
-    either way.  A Cholesky ``eri_factor`` (an explicit factor, or ``"auto"``
-    with ``norb**2 > 256``) is not ported yet and raises.
+    The native branch of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``:
+    the same padding (``pad_to``; clamped tables extended with zero weights,
+    padded diagonal entries at 1e30), the same ``col_block`` (``"auto"``:
+    :func:`_auto_col_block` and the alignment rule; an int: that block, 0 for
+    none; ``N`` is padded to a multiple of it) and the same ``eri_factor``
+    (``"auto"``: :func:`pivoted_cholesky_pairs` with rank at most
+    ``npair // 3`` when ``npair > 256``, kept if it succeeds; ``None``: no
+    factor; an ``(X, npair)`` array: used as given).  The f64 diagonal is
+    computed on the host, or from ``DEVICE_DIAG_MIN_ELEMS`` padded
+    determinants on, assembled on ``device`` from its rank-structured parts.
+    A ``table_cache`` (:class:`sqd_tpu_torch.ops.table_cache.TableCache`)
+    supplies the tables where ``sqd_tpu`` would use it: packed width <= 2
+    words and at most 4096 same-spin candidates per string on both spins;
+    the tables are the same either way.
     """
     m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
     n_a, n_b = (int(x) for x in nelec)
     _check_weights(strs_a_packed, strs_b_packed, (n_a, n_b))
     npair = norb * norb
-    if isinstance(eri_factor, np.ndarray) or (eri_factor == "auto" and npair > 256):
-        raise NotImplementedError(
-            "the Cholesky-factored cross-spin contraction (eri_factor) is not ported "
-            "yet; pass eri_factor=None (see ROADMAP.md)"
-        )
-    if eri_factor not in (None, "auto"):
-        raise ValueError(f"unknown eri_factor {eri_factor!r}")
     m_pad, n_pad = pad_to if pad_to is not None else (m, n)
     if m_pad < m or n_pad < n:
         raise ValueError(f"pad_to {pad_to} smaller than subspace ({m}, {n})")
-    col_block = _auto_col_block(npair, m_pad, n_pad)
-    if npair * m_pad * n_pad > 32 * 1024 * 1024:
-        m_pad = -(-m_pad // 8) * 8
-        n_pad = -(-n_pad // 128) * 128
+    if col_block == "auto":
+        col_block = _auto_col_block(npair, m_pad, n_pad)
+        if npair * m_pad * n_pad > 32 * 1024 * 1024:
+            m_pad = -(-m_pad // 8) * 8
+            n_pad = -(-n_pad // 128) * 128
+    col_block = int(col_block)
     if col_block:
         n_pad = -(-n_pad // col_block) * col_block
     pad_m, pad_n = m_pad - m, n_pad - n
 
     h1_np = np.asarray(h1e, np.float64)
     eri_np = np.asarray(eri, np.float64)
+    eri_chol = None
+    if isinstance(eri_factor, np.ndarray):
+        eri_chol = np.ascontiguousarray(eri_factor, np.float64)
+        if eri_chol.ndim != 2 or eri_chol.shape[1] != npair:
+            raise ValueError(f"eri_factor must be (X, {npair}), got {eri_chol.shape}")
+    elif eri_factor == "auto" and npair > 256:
+        eri_chol = pivoted_cholesky_pairs(eri_np, norb, max_rank=npair // 3)
+    elif eri_factor not in (None, "auto"):
+        raise ValueError(f"unknown eri_factor {eri_factor!r}")
     # the cache stores per-string rows at the full candidate width: at high
     # filling that width explodes and the direct build is the cheaper one
     cached = (
@@ -377,7 +645,6 @@ def build_sci_hamiltonian(
     ib, vb = tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b)
     occ_a = _occupancy_np(strs_a_packed, norb)
     occ_b = _occupancy_np(strs_b_packed, norb)
-    hd = _hdiag_np(occ_a, occ_b, h1_np, eri_np)
     if pad_m or pad_n:
         src_a = np.pad(src_a, ((0, 0), (0, pad_m)))
         sign_a = np.pad(sign_a, ((0, 0), (0, pad_m)))
@@ -387,7 +654,6 @@ def build_sci_hamiltonian(
         va = np.pad(va, ((0, pad_m), (0, 0)))
         ib = np.pad(ib, ((0, pad_n), (0, 0)))
         vb = np.pad(vb, ((0, pad_n), (0, 0)))
-        hd = np.pad(hd, ((0, pad_m), (0, pad_n)), constant_values=1e30)
     eri_t = np.ascontiguousarray(eri_np.reshape(npair, npair).T)
 
     def idx(x):
@@ -395,6 +661,20 @@ def build_sci_hamiltonian(
 
     def val(x):
         return torch.as_tensor(x, device=device).to(dtype)
+
+    if m_pad * n_pad >= DEVICE_DIAG_MIN_ELEMS:
+        # only the O((M + N) * norb) parts cross to the device
+        a_part, b_part, w = _hdiag_parts_np(occ_a, occ_b, h1_np, eri_np)
+        hd = _hdiag_device(
+            torch.as_tensor(np.pad(a_part, (0, pad_m), constant_values=1e30), device=device),
+            torch.as_tensor(np.pad(b_part, (0, pad_n), constant_values=1e30), device=device),
+            torch.as_tensor(np.pad(occ_a, ((0, pad_m), (0, 0))), device=device),
+            torch.as_tensor(np.pad(w, ((0, pad_n), (0, 0))), device=device),
+            dtype=dtype,
+        )
+    else:
+        hd = val(np.pad(_hdiag_np(occ_a, occ_b, h1_np, eri_np), ((0, pad_m), (0, pad_n)),
+                        constant_values=1e30))
 
     return SCIHamiltonian(
         src_a=idx(src_a),
@@ -406,7 +686,8 @@ def build_sci_hamiltonian(
         nbr_idx_b=idx(ib),
         nbr_val_b=val(vb),
         eri_t=val(eri_t),
-        hdiag=val(hd),
+        hdiag=hd,
+        eri_chol=None if eri_chol is None else torch.as_tensor(eri_chol, device=device),
         norb=int(norb),
         nelec=(n_a, n_b),
         spin_shift=float(spin_shift),

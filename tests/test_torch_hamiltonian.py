@@ -5,8 +5,6 @@ Integer tables must be equal; values agree to 1e-12 relative; the f64 matvec
 to ``1e-12 * scale`` (f64 sums in another order).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -174,16 +172,33 @@ def test_bitpack_host_half_matches():
     np.testing.assert_array_equal(port_bitpack.bit_masks(40), bitpack.bit_masks(40))
 
 
-def test_unported_options_raise(problem):
+def test_large_shape_options_match(problem):
+    """The three options that raised before they were ported now give
+    ``sqd_tpu``'s result: an explicit ``eri_factor`` (f32 factored matvec,
+    1e-5 relative), an f64 matvec with ``col_block > 0`` (1e-12) and the
+    ``"sparse"`` same-spin tables past 4M probes (bit for bit)."""
     sa, sb, h1, eri = problem
     pa, pb = _packed(sa), _packed(sb)
-    with pytest.raises(NotImplementedError, match="eri_factor"):
-        build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu",
-                              eri_factor=np.eye(NORB * NORB))
-    ham_t = build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu")
-    blocked = dataclasses.replace(ham_t, col_block=4)
-    with pytest.raises(NotImplementedError, match="col_block"):
-        blocked.matvec(torch.zeros(ham_t.shape, dtype=torch.float64))
+    factor = np.eye(NORB * NORB)
+    ham_j = jax_build(pa, pb, h1, eri, NORB, NELEC, eri_factor=factor)
+    ham_t = build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu", eri_factor=factor)
+    np.testing.assert_array_equal(ham_t.eri_chol.numpy(), np.asarray(ham_j.eri_chol))
+    c32 = np.random.default_rng(3).normal(size=ham_j.shape).astype(np.float32)
+    ref = np.asarray(ham_j.astype(jnp.float32)._matvec_full(jnp.asarray(c32)))
+    out = ham_t.astype(torch.float32)._matvec_full(torch.as_tensor(c32)).numpy()
+    assert np.max(np.abs(out - ref)) <= 1e-5 * max(np.max(np.abs(ref)), 1.0)
+
+    blocked_j = jax_build(pa, pb, h1, eri, NORB, NELEC, col_block=4)
+    blocked = build_sci_hamiltonian(pa, pb, h1, eri, NORB, NELEC, device="cpu", col_block=4)
+    assert blocked.col_block == 4 and blocked.shape == blocked_j.shape == (14, 12)
+    c = np.random.default_rng(4).normal(size=blocked.shape)
+    _close64(blocked.matvec(torch.as_tensor(c)), blocked_j.matvec(jnp.asarray(c)))
+
     # 3000 strings x 1450 candidates (20 orbitals, 6 electrons) is past 4M probes
-    with pytest.raises(NotImplementedError, match="sparse"):
-        native.samespin_tables(np.zeros((3000, 1), np.uint32), np.eye(20), None, 20, 6)
+    rng = np.random.default_rng(5)
+    strs = np.sort(rng.choice(dense_fci.all_hamming_strings(20, 6), 3000, replace=False))
+    packed = bitpack.pack_ints(strs, 20)
+    h1_20, eri_20 = _integrals(20, seed=6)
+    for ours, theirs in zip(native.samespin_tables(packed, h1_20, eri_20, 20, 6),
+                            jax_native.samespin_tables(packed, h1_20, eri_20, 20, 6)):
+        np.testing.assert_array_equal(ours, theirs)

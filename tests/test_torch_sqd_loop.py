@@ -12,6 +12,9 @@
 * On ``chip_smoke.py``'s phase-6 problem, iteration 0 gives the strings that
   ``tools/make_sqd_loop_data.py`` recorded from ``sqd_tpu`` (host work only:
   a recording solver stub stands in for the solves).
+* On phase 8's N2/cc-pVDZ problem (28 orbitals), iteration 0 gives, in both
+  packages, the strings ``tools/make_ccpvdz_data.py`` recorded, and the
+  port's solve of the recorded sub-batch gives ``sqd_tpu``'s energy.
 """
 
 import importlib.util
@@ -202,3 +205,85 @@ def test_card_record_iteration_zero():
         assert min(len(strs_a), len(strs_b)) >= 900  # ~10^6 determinants per solve
         assert smoke.strings_digest(strs_a) == batch["sha256_alpha"]
         assert smoke.strings_digest(strs_b) == batch["sha256_beta"]
+
+
+def _ccpvdz_record(smoke):
+    with open(smoke.CCPVDZ_STEM + ".json") as f:
+        return json.load(f)
+
+
+def _recording_solver(seen, state_cls, result_cls, **state_kwargs):
+    def solver(ci_strings, h1, h2, norb, nelec):
+        seen.extend(ci_strings)
+        return [
+            result_cls(0.0, state_cls(np.zeros((len(a), len(b))), a, b, norb, nelec,
+                                      **state_kwargs),
+                       orbital_occupancies=(np.zeros(norb), np.zeros(norb)))
+            for a, b in ci_strings
+        ]
+    return solver
+
+
+def test_ccpvdz_record_iteration_zero():
+    """``chip_smoke.py`` phase 8, iteration 0: the port's and ``sqd_tpu``'s
+    batch strings both hash to the digests ``tools/make_ccpvdz_data.py``
+    recorded, and every batch is past the sparse same-spin threshold."""
+    smoke = _chip_smoke()
+    record = _ccpvdz_record(smoke)
+    assert record["settings"] == dict(smoke.CCPVDZ_SETTINGS, max_iterations=1)
+    dump = read_fcidump(smoke.CCPVDZ_STEM + ".fcidump")
+    shots = smoke.ccpvdz_shots()
+    assert shots.shape == (smoke.CCPVDZ_SHOTS, 56)
+    seen_port, seen_jax = [], []
+    fermion.diagonalize_fermionic_hamiltonian(
+        dump["h1e"], dump["eri"], BitArray.from_bool_array(shots), norb=28, nelec=(7, 7),
+        sci_solver=_recording_solver(seen_port, fermion.SCIState, fermion.SCIResult,
+                                     device="cpu"),
+        device="cpu", **record["settings"])
+    jax_fermion.diagonalize_fermionic_hamiltonian(
+        dump["h1e"], dump["eri"], JaxBitArray.from_bool_array(shots), norb=28, nelec=(7, 7),
+        sci_solver=_recording_solver(seen_jax, jax_fermion.SCIState, jax_fermion.SCIResult),
+        **record["settings"])
+    assert len(seen_port) == len(seen_jax) == len(record["batches"]) == 2
+    for (strs_a, strs_b), (ref_a, ref_b), batch in zip(seen_port, seen_jax, record["batches"]):
+        np.testing.assert_array_equal(strs_a, ref_a)
+        np.testing.assert_array_equal(strs_b, ref_b)
+        assert (len(strs_a), len(strs_b)) == (batch["n_alpha"], batch["n_beta"])
+        assert min(len(strs_a), len(strs_b)) > 877  # past 4M same-spin probes
+        assert smoke.strings_digest(strs_a) == batch["sha256_alpha"]
+        assert smoke.strings_digest(strs_b) == batch["sha256_beta"]
+
+
+def test_ccpvdz_data_and_sub_batch_energy():
+    """The committed cc-pVDZ FCIDUMP equals ``sqd_tpu.chem``'s integrals
+    (``<= 1e-11``: the active-space transform is symmetric only to ~1e-12),
+    ``"auto"`` declines to factor them as in ``sqd_tpu`` (rank 365 >
+    784 // 3), and the port's f64 ``solve_sci`` on the recorded sub-batch is
+    within 1e-8 Ha of ``sqd_tpu``'s recorded energy."""
+    from sqd_tpu_torch.ops.hamiltonian import pivoted_cholesky_pairs
+
+    smoke = _chip_smoke()
+    record = _ccpvdz_record(smoke)
+    mf = rhf(Molecule([("N", (0, 0, 0)), ("N", (1.0977, 0, 0))], basis="cc-pvdz"))
+    h1, eri, ecore = active_space_integrals(mf, ncas=28, nelecas=14)
+    dump = read_fcidump(smoke.CCPVDZ_STEM + ".fcidump")
+    assert dump["norb"] == 28 and dump["nelec"] == (7, 7)
+    np.testing.assert_allclose(dump["h1e"], h1, rtol=0, atol=1e-11)
+    np.testing.assert_allclose(dump["eri"], eri, rtol=0, atol=1e-11)
+    assert abs(dump["ecore"] - ecore) <= 1e-12 and record["ecore"] == dump["ecore"]
+    assert abs(record["rhf_energy"] - mf.e_tot) <= 1e-10
+    assert record["cholesky_rank_auto"] is None
+    assert pivoted_cholesky_pairs(dump["eri"], 28, max_rank=28 * 28 // 3) is None
+    factor = pivoted_cholesky_pairs(dump["eri"], 28)
+    assert factor.shape == (record["cholesky_rank_uncapped"], 784)
+
+    seen = []
+    fermion.diagonalize_fermionic_hamiltonian(
+        dump["h1e"], dump["eri"], BitArray.from_bool_array(smoke.ccpvdz_shots()), norb=28,
+        nelec=(7, 7), sci_solver=_recording_solver(seen, fermion.SCIState, fermion.SCIResult,
+                                                   device="cpu"),
+        device="cpu", **record["settings"])
+    sub = tuple(s[: smoke.CCPVDZ_SUB_BATCH] for s in seen[0])
+    out = fermion.solve_sci(sub, dump["h1e"], dump["eri"], 28, (7, 7), device="cpu")
+    assert abs(out.energy - record["sub_batch"]["energy"]) <= 1e-8
+    assert out.energy + dump["ecore"] < record["rhf_energy"]

@@ -64,7 +64,27 @@ Phases, each printing one line; any failure exits non-zero:
    host-f64 Rayleigh quotient (alpha-row blocks) and below RHF, its
    occupancies sum to (7, 7); every batch solve must build the sparse
    same-spin tables, a column-blocked operator with the factor attached,
-   launch the kernel and run a blocked f64 matvec.
+   launch the kernel and run a blocked f64 matvec;
+9. qubit path — (a) ``bench.py``'s projection headline: ``pauli_term_table``
+   for Z^n over d = 5e7 random unique 40- and 60-qubit strings (seeds 3 and
+   4, sorted and deduplicated on the card), best of 3, its signs summing to
+   the host ``np.bitwise_count`` parity count; at 40 qubits also X Z^39
+   (the involution-pairing membership), its columns equal to the host
+   radix merge ``native.connected_membership``; and the public
+   ``matrix_elements_from_pauli`` on the packed input and on the bool
+   matrix, each printed beside the reference's published CPU seconds;
+   (b) ``solve_qubit_device(tol=1e-6)`` with its defaults on
+   ``probes/qubit_solve_1e7.py``'s 26-site Heisenberg ring over the d = 1e7
+   strings of :func:`solve_strings`: packed weights and the group loop, an
+   f32 then an f64 Davidson, the energy within 1e-7 of a NumPy host-f64
+   Rayleigh quotient (:func:`pauli_host_energy`) and within 1e-6 of the
+   ``sqd_tpu`` record ``sqd_tpu_torch/data/qubit_heisenberg26_1e7.json``
+   (``tools/make_qubit_data.py``); one f32 and one f64 matvec timed beside
+   their byte bound; (c) ``solve_qubit_device(k=3)`` on a 20-site ring with
+   a Dzyaloshinskii-Moriya term (complex128) and on the real ring, over 2e5
+   strings (seed 8), within 1e-7 of ``solve_qubit(k=3, which="SA")`` with
+   orthonormal columns.  This path reaches no Pallas kernel in ``sqd_tpu``,
+   so it has no CUDA kernel and no entry in the kernels' record.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -102,6 +122,16 @@ CCPVDZ_SETTINGS = {
     "symmetrize_spin": True, "seed": 13,
 }
 CCPVDZ_SUB_BATCH = 150  # strings per spin of the recorded sub-batch solve
+# phase 9: the qubit path.  (a) bench.py's projection headline: one Pauli term
+# over d = 5e7 random unique strings, with the reference's published CPU
+# seconds for the Z^n term (BASELINE.md); (b) probes/qubit_solve_1e7.py's
+# Heisenberg solve, against the sqd_tpu record of tools/make_qubit_data.py;
+# (c) complex operators and k = 3 against scipy's eigsh
+PROJ_D = 50_000_000
+PROJ_CASES = ((40, 3, 4.17), (60, 4, 5.16))  # (qubits, seed, reference CPU seconds)
+QUBIT_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "qubit_heisenberg26_1e7.json")
+QUBIT_SOLVE = {"sites": 26, "h_z": 0.1, "d": 10_000_000, "seed": 7, "tol": 1e-6}
+QUBIT_K = {"sites": 20, "dm": 0.3, "d": 200_000, "seed": 8, "k": 3}
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -182,6 +212,35 @@ def strings_digest(strs) -> str:
     import numpy as np
 
     return hashlib.sha256(np.ascontiguousarray(strs, dtype=np.int64).tobytes()).hexdigest()
+
+
+def solve_strings(sites=QUBIT_SOLVE["sites"], d=QUBIT_SOLVE["d"], seed=QUBIT_SOLVE["seed"]):
+    """Phase 9 (b)'s subspace, as ``probes/qubit_solve_1e7.py``: the first
+    ``d`` of the sorted unique values of ``1.1 d`` random ``sites``-bit
+    integers (int64, ascending)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ints = np.unique(rng.integers(0, 1 << sites, size=int(d * 1.1), dtype=np.int64))[:d]
+    if len(ints) != d:
+        fail(f"only {len(ints)} unique strings for d = {d}")
+    return ints
+
+
+def dm_ring_terms(n, dm):
+    """Phase 9 (c)'s complex Hamiltonian as ``(label, coeff)`` terms: a
+    Heisenberg ring (J = 1) plus a Dzyaloshinskii-Moriya term ``dm (XY - YX)``
+    on each bond.  The odd-Y terms make the projected operator complex, and
+    XY and YX share their x-mask with XX and YY."""
+    terms = []
+    for i in range(n):
+        j = (i + 1) % n
+        for a, b, c in (("X", "X", 1.0), ("Y", "Y", 1.0), ("Z", "Z", 1.0),
+                        ("X", "Y", dm), ("Y", "X", -dm)):
+            chars = ["I"] * n
+            chars[n - 1 - i], chars[n - 1 - j] = a, b
+            terms.append(("".join(chars), c))
+    return terms
 
 
 def host_f64_energy(ham, vec, row_block=32) -> float:
@@ -693,6 +752,270 @@ def ccpvdz_phase(dev, smi, factor) -> int:
     return launches
 
 
+def pauli_host_energy(ints, paulis, coeffs, vec) -> float:
+    """<v|H|v> / <v|v> of a Pauli sum over the sorted unique strings ``ints``
+    (int64, under 63 qubits) in plain NumPy, independent of the port: per
+    unique x-mask one ``np.searchsorted`` of ``ints ^ x``, and each term's
+    sign from ``np.bitwise_count`` parity, ``A[row, col] = c i^{#Y}
+    (-1)^{popcount(row & z)}`` as the reference projects.  The groups run on
+    8 threads (NumPy releases the GIL in these calls)."""
+    import numpy as np
+
+    v = np.asarray(vec)
+    groups: dict[int, list] = {}
+    for pauli, c in zip(paulis, coeffs):
+        z = sum(1 << int(q) for q in np.flatnonzero(pauli.z))
+        x = sum(1 << int(q) for q in np.flatnonzero(pauli.x))
+        n_y = int(np.sum(np.asarray(pauli.z) & np.asarray(pauli.x)))
+        groups.setdefault(x, []).append((z, complex(c) * 1j ** n_y))
+
+    def group_term(item):
+        x, terms = item
+        weight = np.zeros(len(ints), dtype=np.complex128)
+        for z, c in terms:
+            weight += c * (1 - 2 * (np.bitwise_count(ints & np.int64(z)) & 1).astype(np.float64))
+        if x == 0:
+            return np.vdot(v, weight * v)
+        conn = ints ^ np.int64(x)
+        pos = np.minimum(np.searchsorted(ints, conn), len(ints) - 1)
+        hit = ints[pos] == conn
+        return np.vdot(v[hit], weight[hit] * v[pos[hit]])
+
+    with ThreadPoolExecutor(8) as pool:
+        total = sum(pool.map(group_term, groups.items()))
+    return float(np.real(total) / np.vdot(v, v).real)
+
+
+def projection_phase(dev, smi) -> None:
+    """Phase 9 (a): ``bench.py``'s projection headline on the card."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import native, qubit
+    from sqd_tpu_torch.ops import bitpack
+    from sqd_tpu_torch.ops.pauli_proj import pauli_masks_to_packed, pauli_term_table
+    from sqd_tpu_torch.primitives import Pauli
+
+    def time_term(words, pauli):
+        """Best of 3 of the device table, each ended by reading a checksum."""
+        best = float("inf")
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            col, sign, _ = pauli_term_table(words, pauli, device=dev)
+            checksum = int(sign.sum(dtype=torch.int64))
+            best = min(best, time.perf_counter() - t0)
+        return best, col, sign, checksum
+
+    def best_of(n, fn):
+        best = float("inf")
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return best, out
+
+    for nq, seed, ref_s in PROJ_CASES:
+        t0 = time.perf_counter()
+        # bench.py's inputs: sorted unique values of PROJ_D random nq-bit
+        # integers; the sort and dedup run on the card, giving the same set
+        ints = np.random.default_rng(seed).integers(0, 1 << nq, size=PROJ_D, dtype=np.int64)
+        uniq = torch.unique(torch.from_numpy(ints).to(dev))
+        words = torch.stack([uniq & 0xFFFFFFFF, uniq >> 32], dim=1)
+        packed = bitpack.to_host_words(words)
+        d = len(packed)
+        del ints, uniq
+        parity = np.bitwise_count(packed).sum(axis=1, dtype=np.int64) & 1
+        host_checksum = d - 2 * int(parity.sum())
+        t_setup = time.perf_counter() - t0
+        pz = Pauli.from_label("Z" * nq)
+        t_z, _, _, checksum = time_term(words, pz)
+        # a table reads the int64 words once and writes int32 columns and int8 signs
+        bound_s = (words.numel() * words.element_size() + 5 * d) / PEAK_HBM_BYTES
+        checks = {f"Z^{nq} signs sum to the host parity count": checksum == host_checksum}
+        line = (f"projection {nq} qubits, d = {d} ({smi}): setup {t_setup:.2f} s; Z^{nq} "
+                f"pauli_term_table on the card {t_z:.4f} s (best of 3, a checksum read "
+                f"ends each), checksum {checksum} (host {host_checksum}); a table's byte "
+                f"bound {bound_s * 1e3:.4f} ms (words read, columns and signs written, "
+                f"3.35 TB/s)")
+        if nq == 40:
+            px = Pauli.from_label("X" + "Z" * (nq - 1))
+            t_x, col, sign, _ = time_term(words, px)
+            zw, xw = pauli_masks_to_packed(px.z, px.x)
+            t0 = time.perf_counter()
+            member = native.connected_membership(packed, xw)
+            t_host = time.perf_counter() - t0
+            zpar = np.bitwise_count(packed & zw[None, :2]).sum(axis=1, dtype=np.int64) & 1
+            want_sign = np.where(member >= 0, 1 - 2 * zpar, 0)
+            col, sign = col.cpu().numpy(), sign.cpu().numpy()
+            cols_ok = bool(np.array_equal(col, np.where(member >= 0, member, d)))
+            checks["X Z^39 columns equal the host radix merge's"] = cols_ok
+            checks["X Z^39 signs equal the host parity"] = bool(np.array_equal(sign, want_sign))
+            line += (f"; X Z^39 (pairing) {t_x:.4f} s, {int((member >= 0).sum())} partners, "
+                     f"columns {'equal' if cols_ok else 'UNEQUAL'} to "
+                     f"native.connected_membership (host radix merge, {t_host:.2f} s)")
+            del col, sign, member, zpar, want_sign
+        t_api, (amps, rows, _) = best_of(2, lambda: qubit.matrix_elements_from_pauli(
+            packed, pz, device=dev))
+        checks["packed API amplitudes"] = len(rows) == d and int(amps.real.sum()) == host_checksum
+        del amps, rows
+        bool_mat = bitpack.unpack_to_bool_matrix(packed, nq)
+        t_bool, (amps, rows, _) = best_of(2, lambda: qubit.matrix_elements_from_pauli(
+            bool_mat, pz, device=dev))
+        checks["bool API amplitudes"] = len(rows) == d and int(amps.real.sum()) == host_checksum
+        del amps, rows, bool_mat
+        print(f"{line}; matrix_elements_from_pauli (host C++ for a diagonal term) on the "
+              f"packed input {t_api:.4f} s, on the {d * nq / 1e9:.1f} GB bool matrix "
+              f"{t_bool:.4f} s (best of 2); the reference's published CPU figure for the "
+              f"bool setup: {ref_s} s", flush=True)
+        for what, ok in checks.items():
+            if not ok:
+                fail(f"projection {nq} qubits: {what}")
+        del words, packed
+        torch.cuda.empty_cache()
+
+
+def qubit_solve_phase(dev, smi) -> None:
+    """Phase 9 (b): ``solve_qubit_device`` with its defaults on the recorded
+    Heisenberg subspace, and one f32 and one f64 matvec beside their bound."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import qubit
+    from sqd_tpu_torch.models.heisenberg import heisenberg_ring
+    from sqd_tpu_torch.ops import pauli_proj
+    from sqd_tpu_torch.ops.pauli_proj import estimate_operator_bytes, pauli_apply_flat
+
+    with open(QUBIT_DATA) as f:
+        recorded = json.load(f)
+    sites, seed, tol = QUBIT_SOLVE["sites"], QUBIT_SOLVE["seed"], QUBIT_SOLVE["tol"]
+    ints = solve_strings(sites, recorded["d"], seed)
+    if strings_digest(ints) != recorded["sha256_strings"]:
+        fail("qubit solve: the strings differ from the recorded ones")
+    op = heisenberg_ring(sites, h_z=QUBIT_SOLVE["h_z"])
+    davidson: list[tuple[str, int]] = []
+    probe = Probe()
+    probe.timed(qubit, "build_projected_operator", "operator build")
+    probe.timed(pauli_proj, "_pair_cols", "membership (pairing sorts)")
+
+    def stage(fn):
+        def wrapper(matvec, operator, hdiag, v0, **kwargs):
+            name = "f32 Davidson" if v0.dtype.itemsize == 4 else "f64 Davidson"
+            sync()
+            t0 = time.perf_counter()
+            out = fn(matvec, operator, hdiag, v0, **kwargs)
+            sync()
+            probe.spans[-1][name] = time.perf_counter() - t0
+            davidson.append((name, out.iterations))
+            return out
+        return wrapper
+
+    probe.wrap(qubit, "davidson_ground_state", stage)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        energy, vec, proj = qubit.solve_qubit_device(
+            ints.astype(np.uint32)[:, None], op, tol=tol, device=dev)
+        t_solve = time.perf_counter() - t0
+    finally:
+        probe.__exit__()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    span = probe.spans[-1]
+    t0 = time.perf_counter()
+    e_host = pauli_host_energy(ints, op.paulis, op.coeffs, vec)
+    t_host = time.perf_counter() - t0
+    kmax = proj.coeff.shape[1] if proj.packed_weights else 1
+    # the membership build reads the int64 words once per x-mask and writes perm
+    member_bound = proj.perm.shape[0] * proj.dim * (8 + 4) / PEAK_HBM_BYTES
+    estimate = estimate_operator_bytes(proj.dim, num_nondiag_groups=proj.perm.shape[0],
+                                       max_terms_per_group=kmax, weights="packed")
+    print(f"qubit solve: L = {sites} ring, {op.size} terms, d = {proj.dim}, {proj.num_groups} "
+          f"groups, packed weights {proj.packed_weights}, group loop {proj.scan_matvec}, "
+          f"operator {proj.memory_bytes / 1e9:.3f} GB (estimate {estimate / 1e9:.3f} GB); "
+          f"solve_qubit_device {t_solve:.3f} s: operator build {span['operator build']:.3f} s "
+          f"(membership: {proj.perm.shape[0]} pairing sorts "
+          f"{span.get('membership (pairing sorts)', 0.0):.3f} s, byte bound "
+          f"{member_bound * 1e3:.3f} ms), "
+          + ", ".join(f"{k} {span[k]:.3f} s" for k in ("f32 Davidson", "f64 Davidson")
+                      if k in span)
+          + f"; Davidson (stage, iterations) {davidson}; peak device memory {peak:.2f} GB "
+          f"({smi})", flush=True)
+    print(f"qubit solve: energy {energy:.12f}, |E - host f64| {abs(energy - e_host):.3e} "
+          f"(host quotient {t_host:.2f} s), |E - sqd_tpu| {abs(energy - recorded['energy']):.3e} "
+          f"(sqd_tpu {recorded['energy']:.12f})", flush=True)
+    checks = {
+        "packed weights and the group loop": proj.packed_weights and proj.scan_matvec,
+        "membership by the pairing sorts": "membership (pairing sorts)" in span,
+        "the recorded group count": proj.num_groups == recorded["num_groups"],
+        "operator bytes equal the estimate": proj.memory_bytes == estimate,
+        "an f32 stage and an f64 stage ran": [s for s, _ in davidson] == ["f32 Davidson",
+                                                                          "f64 Davidson"],
+        "energy within 1e-7 of the host f64 quotient": abs(energy - e_host) < TOL_ENERGY,
+        "energy within 1e-6 of sqd_tpu's": abs(energy - recorded["energy"]) < 1e-6,
+        "vector finite and normalized": bool(np.isfinite(vec).all())
+        and abs(np.linalg.norm(vec) - 1.0) < 1e-8,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"qubit solve: {what}")
+
+    # one f32 and one f64 matvec, beside the bytes they must move: perm, sign
+    # words, coefficients, hdiag, the gathered values, the vector and the result
+    d, groups = proj.dim, proj.perm.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.float32, torch.float64):
+        v = torch.randn(d, dtype=dt, device=dev, generator=gen)
+        pauli_apply_flat(proj, v)
+        ms = float(np.median([event_ms(lambda: pauli_apply_flat(proj, v), 5) for _ in range(5)]))
+        size = v.element_size()
+        nbytes = (proj.memory_bytes + groups * d * size + 2 * d * size)
+        bound = nbytes / PEAK_HBM_BYTES * 1e3
+        print(f"pauli_apply_flat {str(dt).split('.')[-1]} at d = {d}, {groups} groups ({smi}): "
+              f"{ms:.4f} ms (median of 5 rounds of 5 calls, CUDA events); bound "
+              f"{nbytes / 1e9:.4f} GB at 3.35 TB/s = {bound:.4f} ms, {bound / ms:.2%} of it",
+              flush=True)
+    del proj
+    torch.cuda.empty_cache()
+
+
+def qubit_k_phase(dev, smi) -> None:
+    """Phase 9 (c): complex operators and k = 3 against scipy's ``eigsh``."""
+    import numpy as np
+
+    from sqd_tpu_torch import qubit
+    from sqd_tpu_torch.models.heisenberg import heisenberg_ring
+    from sqd_tpu_torch.primitives import SparsePauliOp
+
+    n, k = QUBIT_K["sites"], QUBIT_K["k"]
+    rng = np.random.default_rng(QUBIT_K["seed"])
+    ints = np.sort(rng.choice(1 << n, size=QUBIT_K["d"], replace=False))
+    mat = ((ints[:, None] >> np.arange(n)[::-1]) & 1).astype(bool)
+    for name, op in (("DM ring", SparsePauliOp.from_list(dm_ring_terms(n, QUBIT_K["dm"]))),
+                     ("real ring", heisenberg_ring(n, h_z=QUBIT_SOLVE["h_z"]))):
+        t0 = time.perf_counter()
+        w_ref, _ = qubit.solve_qubit(mat, op, k=k, which="SA", device=dev)
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w, v, proj = qubit.solve_qubit_device(mat, op, k=k, device=dev)
+        t_dev = time.perf_counter() - t0
+        diff = float(np.abs(np.sort(w_ref) - w).max())
+        ortho = float(np.abs(v.conj().T @ v - np.eye(k)).max())
+        print(f"qubit k = {k} [{name}], d = {len(ints)}, {op.size} terms, complex "
+              f"{proj.is_complex} (vectors {v.dtype}): solve_qubit_device {t_dev:.3f} s, "
+              f"solve_qubit (host eigsh) {t_ref:.3f} s; energies {np.round(w, 10).tolist()}, "
+              f"max |dE| {diff:.3e}, columns orthonormal to {ortho:.3e} ({smi})", flush=True)
+        checks = {
+            "complex128 where the operator is complex": proj.is_complex == (name == "DM ring")
+            and v.dtype == (np.complex128 if proj.is_complex else np.float64),
+            "energies within 1e-7 of eigsh's": diff < TOL_ENERGY,
+            "orthonormal columns": ortho < 1e-8,
+        }
+        for what, ok in checks.items():
+            if not ok:
+                fail(f"qubit k = {k} [{name}]: {what}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -891,6 +1214,13 @@ def main() -> None:
     casci_launches, casci, casci_err = casci_phase(dev, smi, h1, eri, ecore, rng)
     ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
+
+    # -- 9. the qubit path (no kernel of its own: torch ops and host C++) ----
+    t0 = time.perf_counter()
+    projection_phase(dev, smi)
+    qubit_solve_phase(dev, smi)
+    qubit_k_phase(dev, smi)
+    print(f"qubit path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",

@@ -8,6 +8,12 @@ The fields arrive as numpy arrays, so nothing here imports ``sqd_tpu``::
         fields["eri_chol"] = np.asarray(ham_jax.eri_chol)
     ham = hamiltonian_from_numpy(fields, norb=..., nelec=...,
                                  col_block=ham_jax.col_block, device="cuda")
+
+    fields = {k: np.asarray(getattr(op_jax, k)) for k in PAULI_FIELDS}
+    op = pauli_operator_from_numpy(fields, is_complex=op_jax.is_complex,
+                                   has_diag=op_jax.has_diag,
+                                   packed_weights=op_jax.packed_weights,
+                                   scan_matvec=op_jax.scan_matvec, device="cuda")
 """
 
 from __future__ import annotations
@@ -16,8 +22,12 @@ import numpy as np
 import torch
 
 from .ops.hamiltonian import SCIHamiltonian
+from .ops.pauli_proj import ProjectedPauliOperator
 
-__all__ = ["FIELDS", "OPTIONAL_FIELDS", "hamiltonian_from_numpy"]
+__all__ = [
+    "FIELDS", "OPTIONAL_FIELDS", "PAULI_FIELDS", "hamiltonian_from_numpy",
+    "pauli_operator_from_numpy",
+]
 
 FIELDS = (
     "src_a", "sign_a", "src_b", "sign_b",
@@ -65,4 +75,55 @@ def hamiltonian_from_numpy(
         spin_shift=float(spin_shift),
         spin_target=float(spin_target),
         col_block=int(col_block),
+    )
+
+
+PAULI_FIELDS = (
+    "perm", "weight_re", "weight_im", "hdiag", "hdiag_im", "sign_words", "coeff_re", "coeff_im",
+)
+
+
+def pauli_operator_from_numpy(
+    fields: dict,
+    *,
+    is_complex: bool,
+    has_diag: bool,
+    packed_weights: bool,
+    scan_matvec: bool,
+    device,
+) -> ProjectedPauliOperator:
+    """The port's :class:`ProjectedPauliOperator` from ``sqd_tpu``'s fields.
+
+    ``sqd_tpu`` keeps a complex operator split: ``weight_re + 1j * weight_im``
+    becomes the complex weights (complex64 from f32 halves) and ``coeff_re +
+    1j * coeff_im`` the complex packed coefficients.  ``perm`` stays int32,
+    and the uint32 sign words become int32 tensors with the same bits.
+    ``PAULI_FIELDS`` are required; missing or unknown fields raise
+    ``KeyError``.
+    """
+    if set(fields) != set(PAULI_FIELDS):
+        raise KeyError(f"expected fields {sorted(PAULI_FIELDS)}, got {sorted(fields)}")
+    f = {name: np.asarray(fields[name]) for name in PAULI_FIELDS}
+    weight, coeff = f["weight_re"], f["coeff_re"]
+    if is_complex:
+        if weight.size:
+            weight = weight + 1j * f["weight_im"]
+        coeff = (coeff + 1j * f["coeff_im"]) if coeff.size else coeff.astype(np.complex128)
+        if not weight.size:
+            weight = weight.astype(np.complex128)
+
+    def tensor(arr):
+        return torch.as_tensor(np.array(arr), device=device)  # a writable copy
+
+    return ProjectedPauliOperator(
+        perm=tensor(f["perm"].astype(np.int32)),
+        weight=tensor(weight),
+        hdiag=tensor(f["hdiag"]),
+        hdiag_im=tensor(f["hdiag_im"]),
+        sign_words=tensor(f["sign_words"].astype(np.uint32).view(np.int32)),
+        coeff=tensor(coeff),
+        is_complex=bool(is_complex),
+        has_diag=bool(has_diag),
+        packed_weights=bool(packed_weights),
+        scan_matvec=bool(scan_matvec),
     )

@@ -7,9 +7,10 @@
 // sqd_tpu_torch.ops.bitpack.  The functions are those of sqdcore.cpp, line for
 // line, including the set-independent value kernels behind the table cache
 // (gather_values, samespin_values) and the intersection-driven ("sparse")
-// same-spin tables (samespin_sparse_count, samespin_sparse_fill); its
-// connected-membership, integral and Pauli kernels are left out until a
-// slice of the port needs them.
+// same-spin tables (samespin_sparse_count, samespin_sparse_fill), and the
+// qubit path's host kernels (connected_membership64, pauli_diag_from_bool,
+// pauli_diag_from_packed); its integral kernels are left out until a slice
+// of the port needs them.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC sqdcore.cpp -o libsqdcore.so
 
@@ -96,6 +97,50 @@ int64_t desdes_unique(const uint32_t* strs, int64_t n, int w, int nelec,
                       uint32_t* scratch, uint32_t* out) {
     int64_t total = desdes_candidates(strs, n, w, nelec, scratch);
     return sort_unique_rows(scratch, total, w, out);
+}
+
+// Membership of (strs[i] XOR xmask) in the sorted set, for packed widths
+// w <= 2 via radix sort + linear merge (cache-friendly; random-access binary
+// search is latency-bound both here and on TPU HBM).  out[i] = index of the
+// connected string, or -1.
+void connected_membership64(const uint32_t* strs, int64_t n, const uint32_t* xmask,
+                            int64_t* out) {
+    const uint64_t x = (uint64_t)xmask[0] | ((uint64_t)xmask[1] << 32);
+    std::vector<uint64_t> keys(n), tmp(n);
+    std::vector<int64_t> order(n), order_tmp(n);
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t s = (uint64_t)strs[i * 2] | ((uint64_t)strs[i * 2 + 1] << 32);
+        keys[i] = s ^ x;
+        order[i] = i;
+    }
+    // LSD radix sort, 8 passes of 8 bits
+    std::vector<int64_t> count(257);
+    for (int pass = 0; pass < 8; ++pass) {
+        int shift = pass * 8;
+        std::fill(count.begin(), count.end(), 0);
+        for (int64_t i = 0; i < n; ++i) ++count[((keys[i] >> shift) & 0xFF) + 1];
+        for (int b = 0; b < 256; ++b) count[b + 1] += count[b];
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t pos = count[(keys[i] >> shift) & 0xFF]++;
+            tmp[pos] = keys[i];
+            order_tmp[pos] = order[i];
+        }
+        keys.swap(tmp);
+        order.swap(order_tmp);
+    }
+    // linear merge against the (already sorted) string set
+    int64_t j = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t key = keys[i];
+        while (j < n) {
+            uint64_t s = (uint64_t)strs[j * 2] | ((uint64_t)strs[j * 2 + 1] << 32);
+            if (s < key) ++j;
+            else break;
+        }
+        uint64_t s = j < n ? ((uint64_t)strs[j * 2] | ((uint64_t)strs[j * 2 + 1] << 32))
+                           : ~(uint64_t)0;
+        out[order[i]] = (j < n && s == key) ? j : -1;
+    }
 }
 
 }  // extern "C"
@@ -714,6 +759,65 @@ void samespin_sparse_fill(const uint32_t* strs, int64_t n, int w, int norb,
             val_row[c] = e->val;
         }
         for (; c < width; ++c) { idx_row[c] = 0; val_row[c] = 0.0; }
+    }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Fused diagonal-Pauli matrix elements (host fast path).
+//
+// For a Pauli with no X/Y component every subspace string connects to itself:
+// amp_i = phase * (-1)^popcount(string_i AND z_mask), rows = cols = arange.
+// The NumPy formulation walks the data in 4-5 separate passes (pack, mask,
+// popcount, complex cast, arange copies); that is the whole cost of the
+// reference's published like-for-like benchmark
+// (benchmark_pauli_projection.ipynb cells 6-7, d = 5e7, 40 qubits).  These
+// kernels stream the input once and write all three outputs in the same pass.
+
+extern "C" {
+
+// Input: row-major bool matrix (1 byte/entry, n x nq, column 0 = MSB / qubit
+// nq-1), zsel = per-COLUMN 0/1 byte mask.  amps is interleaved complex128.
+void pauli_diag_from_bool(const uint8_t* bm, int64_t n, int nq,
+                          const uint8_t* zsel, double ph_re, double ph_im,
+                          double* amps, int64_t* rows, int64_t* cols) {
+    const int nfull = nq / 8;
+    const int tail = nq - nfull * 8;
+    std::vector<uint64_t> zw(nfull > 0 ? nfull : 1);
+    for (int jj = 0; jj < nfull; ++jj) std::memcpy(&zw[jj], zsel + jj * 8, 8);
+    for (int64_t i = 0; i < n; ++i) {
+        const uint8_t* row = bm + i * nq;
+        uint64_t acc = 0;
+        for (int jj = 0; jj < nfull; ++jj) {
+            uint64_t v;
+            std::memcpy(&v, row + jj * 8, 8);
+            acc ^= v & zw[jj];
+        }
+        int par = __builtin_popcountll(acc) & 1;
+        for (int c = nfull * 8; c < nfull * 8 + tail; ++c)
+            par ^= (row[c] & zsel[c]) & 1;
+        const double s = par ? -1.0 : 1.0;
+        amps[2 * i] = s * ph_re;
+        amps[2 * i + 1] = s * ph_im;
+        rows[i] = i;
+        cols[i] = i;
+    }
+}
+
+// Same contract over packed little-endian uint32 words.
+void pauli_diag_from_packed(const uint32_t* packed, int64_t n, int w,
+                            const uint32_t* zw, double ph_re, double ph_im,
+                            double* amps, int64_t* rows, int64_t* cols) {
+    for (int64_t i = 0; i < n; ++i) {
+        const uint32_t* row = packed + i * w;
+        int acc = 0;
+        for (int j = 0; j < w; ++j) acc += __builtin_popcount(row[j] & zw[j]);
+        const double s = (acc & 1) ? -1.0 : 1.0;
+        amps[2 * i] = s * ph_re;
+        amps[2 * i + 1] = s * ph_im;
+        rows[i] = i;
+        cols[i] = i;
     }
 }
 

@@ -20,9 +20,11 @@ from .build import load_library
 
 __all__ = [
     "compact_neighbours",
+    "connected_membership",
     "desdes_unique",
     "gather_tables",
     "gather_values",
+    "pauli_diag_elements",
     "popcount_rows",
     "samespin_tables",
     "samespin_values",
@@ -38,6 +40,7 @@ _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _i8p = np.ctypeslib.ndpointer(dtype=np.int8, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _i64, _int = ctypes.c_int64, ctypes.c_int
 
 
@@ -67,6 +70,16 @@ def load() -> ctypes.CDLL:
         _u32p, _i64, _int, _int, _int, _f64p, _f64p, _i32p, _f64p, _i64,
     ]
     lib.samespin_sparse_fill.restype = None
+    lib.connected_membership64.argtypes = [_u32p, _i64, _u32p, _i64p]
+    lib.connected_membership64.restype = None
+    lib.pauli_diag_from_bool.argtypes = [
+        _u8p, _i64, _int, _u8p, ctypes.c_double, ctypes.c_double, _f64p, _i64p, _i64p,
+    ]
+    lib.pauli_diag_from_bool.restype = None
+    lib.pauli_diag_from_packed.argtypes = [
+        _u32p, _i64, _int, _u32p, ctypes.c_double, ctypes.c_double, _f64p, _i64p, _i64p,
+    ]
+    lib.pauli_diag_from_packed.restype = None
     return lib
 
 
@@ -76,6 +89,60 @@ def popcount_rows(packed: np.ndarray) -> np.ndarray:
     out = np.empty(packed.shape[0], dtype=np.int64)
     load().popcount_rows(packed, packed.shape[0], packed.shape[1], out)
     return out
+
+
+def connected_membership(sorted_packed: np.ndarray, x_words: np.ndarray) -> np.ndarray:
+    """Index of ``row XOR x`` within the sorted set, or -1 (radix sort and merge).
+
+    For packed widths ``w <= 2`` (at most 64 qubits); a wider matrix raises
+    ``ValueError`` (callers take the device tables there).
+    """
+    sorted_packed = np.ascontiguousarray(sorted_packed, dtype=np.uint32)
+    n, w = sorted_packed.shape
+    if w > 2:
+        raise ValueError(f"connected_membership takes at most 2 words per row, got {w}")
+    x_arr = np.zeros(2, dtype=np.uint32)
+    x_arr[:w] = np.asarray(x_words, np.uint32)[:w]
+    if w == 1:
+        sorted_packed = np.ascontiguousarray(
+            np.concatenate([sorted_packed, np.zeros((n, 1), np.uint32)], axis=1))
+    out = np.empty(n, dtype=np.int64)
+    load().connected_membership64(sorted_packed, n, x_arr, out)
+    return out
+
+
+def pauli_diag_elements(mat: np.ndarray, zmask: np.ndarray, phase: complex):
+    """``(amplitudes, rows, cols)`` of a diagonal Pauli term in one pass.
+
+    ``amp_i = phase * (-1)^popcount(row_i AND z)``, ``rows = cols = arange``.
+
+    Args:
+        mat: ``(n, nq)`` bool matrix with ``zmask`` the per-COLUMN 0/1 byte
+            mask (column order, i.e. qubit order reversed), or ``(n, W)``
+            packed uint32 with ``zmask`` the packed z words (length >= W;
+            extra words must be zero, as the caller checks).
+    """
+    n = int(mat.shape[0])
+    amps = np.empty(2 * n, dtype=np.float64)
+    rows = np.empty(n, dtype=np.int64)
+    cols = np.empty(n, dtype=np.int64)
+    ph_re, ph_im = float(np.real(phase)), float(np.imag(phase))
+    if mat.dtype == np.uint32:
+        packed = np.ascontiguousarray(mat)
+        w = packed.shape[1]
+        zw = np.zeros(w, dtype=np.uint32)
+        zm = np.asarray(zmask, dtype=np.uint32)
+        zw[: min(w, len(zm))] = zm[:w]
+        load().pauli_diag_from_packed(packed, n, w, zw, ph_re, ph_im, amps, rows, cols)
+    elif mat.dtype == np.bool_:
+        zsel = np.ascontiguousarray(np.asarray(zmask, dtype=np.uint8))
+        if len(zsel) != mat.shape[1]:
+            raise ValueError(f"z mask of {len(zsel)} columns for a {mat.shape[1]}-column matrix")
+        bm = np.ascontiguousarray(mat).view(np.uint8)
+        load().pauli_diag_from_bool(bm, n, mat.shape[1], zsel, ph_re, ph_im, amps, rows, cols)
+    else:
+        raise TypeError(f"expected a bool or packed uint32 matrix, got {mat.dtype}")
+    return amps.view(np.complex128), rows, cols
 
 
 def desdes_unique(strs_packed: np.ndarray, nelec: int) -> np.ndarray:

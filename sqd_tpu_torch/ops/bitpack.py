@@ -1,18 +1,25 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Packed-word bitstring arrays: the host (NumPy) half of ``sqd_tpu.ops.bitpack``.
+"""Packed-word bitstring arrays: ``sqd_tpu.ops.bitpack`` in NumPy and torch.
 
-A copy, not an import: ``sqd_tpu``'s package import pulls in JAX.
+A copy, not an import: ``sqd_tpu``'s package import pulls in JAX.  The host
+functions are NumPy; the device functions (``torch_*``, ``sqd_tpu``'s
+``jnp_*``) take torch tensors.
 
 * A *packed matrix* is ``(num_strings, num_words) uint32`` where word ``w``
   holds bits ``[32*w, 32*w + 32)`` — word 0 is least significant.  Bit ``j`` of
   the integer is the occupation of orbital ``j``.
 * Integer (CI-string) form: ``int64`` below 63 bits, Python unbounded
   integers (``object`` dtype) at >= 63 bits.
+* On the device a packed matrix is an ``int64`` tensor holding the same
+  word values (``0 <= word < 2**32``): torch's ``uint32`` lacks shifts,
+  bitwise ops and reductions on some backends, and in ``int64`` bit 31 of a
+  word survives every shift, sum and comparison.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 WORD_BITS = 32
 _WORD_MASK = 0xFFFFFFFF
@@ -57,9 +64,20 @@ def unpack_to_bool_matrix(packed: np.ndarray, nbits: int) -> np.ndarray:
     return out.astype(bool, copy=False)
 
 
+def popcount(packed: np.ndarray) -> np.ndarray:
+    """Per-row population count of a packed matrix."""
+    packed = np.asarray(packed, dtype=np.uint32)
+    return np.bitwise_count(packed).sum(axis=-1).astype(np.int64)
+
+
 def _lex_order(packed: np.ndarray) -> np.ndarray:
     """Indices that sort rows ascending by integer value (the last word is primary)."""
     return np.lexsort(tuple(packed[:, j] for j in range(packed.shape[1])))
+
+
+def sort_packed(packed: np.ndarray) -> np.ndarray:
+    """Rows sorted ascending by integer value."""
+    return packed[_lex_order(packed)]
 
 
 def unique_packed(packed: np.ndarray, return_counts: bool = False):
@@ -136,6 +154,121 @@ def _void_view(arr: np.ndarray) -> np.ndarray:
     """Rows as big-endian fixed-width byte blobs for lexicographic compare."""
     be = np.ascontiguousarray(arr.astype(">u4"))
     return be.view([("", f"V{be.shape[1] * 4}")]).ravel()
+
+
+# ---------------------------------------------------------------------------
+# device (torch) packed-key functions: int64 tensors of 32-bit word values
+# ---------------------------------------------------------------------------
+
+
+def to_device_words(packed, device) -> torch.Tensor:
+    """A packed ``(n, W)`` matrix (uint32 NumPy, or a tensor of word values)
+    as an ``int64`` tensor on ``device``."""
+    if isinstance(packed, torch.Tensor):
+        return packed.to(device=device, dtype=torch.int64)
+    arr = np.asarray(packed, dtype=np.uint32)
+    return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def to_host_words(words: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`to_device_words`: a uint32 NumPy matrix."""
+    return words.cpu().numpy().astype(np.uint32)
+
+
+def torch_popcount(words: torch.Tensor) -> torch.Tensor:
+    """Population count of 32-bit word values held in ``int64`` (SWAR)."""
+    x = words.to(torch.int64)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    # in 64 bits the product keeps its upper bytes: take byte 3 alone
+    return (((x * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+
+
+def torch_popcount_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Per-row popcount of a packed ``(..., W)`` tensor."""
+    return torch_popcount(packed).sum(dim=-1, dtype=torch.int32)
+
+
+def torch_lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic ``a < b`` over the trailing word axis (word 0 least significant)."""
+    w = a.shape[-1]
+    lt = a[..., w - 1] < b[..., w - 1]
+    eq = a[..., w - 1] == b[..., w - 1]
+    for j in range(w - 2, -1, -1):
+        lt = lt | (eq & (a[..., j] < b[..., j]))
+        eq = eq & (a[..., j] == b[..., j])
+    return lt
+
+
+def torch_lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.all(a == b, dim=-1)
+
+
+def torch_lex_order(packed: torch.Tensor, *extra_keys: torch.Tensor) -> torch.Tensor:
+    """Indices that sort rows ascending by ``(words, *extra_keys)``, stably.
+
+    ``packed`` is ``(..., n, W)``; the sort runs over ``n`` for each leading
+    index.  The words compare as one unsigned integer (the last word most
+    significant); ``extra_keys`` (``(..., n)`` non-negative integers, the last
+    least significant) break ties.  One ``torch.sort`` of a single int64 key
+    when all of it fits 63 bits (up to 62 qubits with a 0/1 key); otherwise
+    one stable pass per key from the least significant (``sqd_tpu`` sorts all
+    keys in one multi-key ``lax.sort``, which torch lacks).
+    """
+    n, w = packed.shape[-2:]
+    keys = [packed[..., j] for j in range(w - 1, -1, -1)] + list(extra_keys)  # msb first
+    if n == 0:
+        return torch.zeros(packed.shape[:-1], dtype=torch.int64, device=packed.device)
+    widths = [32] * (w - 1) + [int(k.max()).bit_length() for k in extra_keys]
+    if int(keys[0].max()).bit_length() + sum(widths) <= 63:
+        key = keys[0]
+        for k, width in zip(keys[1:], widths):
+            key = (key << width) | k
+        return torch.sort(key, dim=-1, stable=True).indices
+    order = torch.arange(n, device=packed.device).expand(keys[0].shape).contiguous()
+    for k in reversed(keys):
+        step = torch.sort(torch.gather(k, -1, order), dim=-1, stable=True).indices
+        order = torch.gather(order, -1, step)
+    return order
+
+
+def torch_sort_packed(packed: torch.Tensor, *payloads: torch.Tensor):
+    """Sort rows of a packed tensor ascending; reorder payloads identically."""
+    order = torch_lex_order(packed)
+    sorted_packed = packed[order]
+    return (sorted_packed, *(p[order] for p in payloads)) if payloads else sorted_packed
+
+
+def torch_searchsorted_packed(sorted_packed: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Branchless binary search over packed keys: the left insertion point.
+
+    A query above every row gets ``n`` (``sqd_tpu.ops.bitpack.jnp_searchsorted_packed``
+    runs one more step than it needs and then reports ``n + 1``, through its
+    clamped gather; the ``find`` functions agree either way).
+    """
+    n = sorted_packed.shape[0]
+    steps = max(1, int(np.ceil(np.log2(max(n, 1)))) + 1)
+    q = queries.shape[0]
+    lo = torch.zeros(q, dtype=torch.int64, device=queries.device)
+    hi = torch.full((q,), n, dtype=torch.int64, device=queries.device)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        row = sorted_packed[torch.clamp(mid, max=max(n - 1, 0))]
+        go_right = torch_lex_less(row, queries) & (lo < hi)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def torch_find_packed(sorted_packed: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Index of each query in the sorted rows, or -1 if absent."""
+    n = sorted_packed.shape[0]
+    if n == 0:
+        return torch.full((queries.shape[0],), -1, dtype=torch.int64, device=queries.device)
+    pos = torch.clamp(torch_searchsorted_packed(sorted_packed, queries), max=n - 1)
+    hit = torch_lex_eq(sorted_packed[pos], queries)
+    return torch.where(hit, pos, -1)
 
 
 def prefix_masks(nbits: int) -> np.ndarray:

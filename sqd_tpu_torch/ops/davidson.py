@@ -1,13 +1,17 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""Davidson ground-state eigensolver (port of ``sqd_tpu.ops.davidson``).
+"""Davidson eigensolvers (port of ``sqd_tpu.ops.davidson``).
 
-The same algorithm as ``sqd_tpu``'s jitted solver, as an eager Python loop:
+The same algorithms as ``sqd_tpu``'s jitted solvers, as eager Python loops:
 fixed ``(max_subspace, dim)`` buffers with an active-row count ``m``, masked
-Rayleigh-Ritz on the small Gram matrix (``torch.linalg.eigh`` in f64),
-spectrum-scaled preconditioner clamp, two-round masked classical
-Gram-Schmidt, a raw-residual fallback when the preconditioned direction
-collapses, a stall exit, and a thick restart that keeps
-``max(1, min(max_subspace // 3, 8))`` Ritz vectors.
+Rayleigh-Ritz on the small Gram matrix (``torch.linalg.eigh`` in f64 or
+complex128), spectrum-scaled preconditioner clamp, two-round masked
+classical Gram-Schmidt, a raw-residual fallback when the preconditioned
+direction collapses, a stall exit, and a thick restart.
+:func:`davidson_ground_state` finds the lowest pair (restart keeps
+``max(1, min(max_subspace // 3, 8))`` Ritz vectors);
+:func:`davidson_lowest_k` the ``k`` lowest (restart keeps at least
+``k + 2``).  Both take real symmetric or complex Hermitian operators: the
+vectors' dtype decides, and the Ritz values are real.
 
 The TPU workarounds of ``sqd_tpu`` (Jacobi / hybrid eigensolvers, the
 elementwise-f64 row combinations, the segmented driver) are not ported: the
@@ -20,9 +24,24 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .precision import highest_precision
+from .precision import highest_precision, real_dtype
 
-__all__ = ["DavidsonResult", "davidson_ground_state", "davidson_initial_guess"]
+__all__ = [
+    "DavidsonKResult",
+    "DavidsonResult",
+    "davidson_ground_state",
+    "davidson_initial_guess",
+    "davidson_initial_guess_k",
+    "davidson_lowest_k",
+]
+
+
+def _finite_and_spread(hdiag: torch.Tensor):
+    """``hdiag`` with padding (|h| > 1e20) at +inf, and the unit spread
+    ``1 / (h - min h + 1)`` that decays with the diagonal gap (zero on padding)."""
+    finite = torch.where(hdiag.abs() > 1e20, torch.inf, hdiag)
+    spread = 1.0 / (finite - finite.min() + 1.0)
+    return finite, spread / torch.linalg.norm(spread)
 
 
 def davidson_initial_guess(hdiag: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -34,13 +53,25 @@ def davidson_initial_guess(hdiag: torch.Tensor, dtype: torch.dtype | None = None
     with the true ground state.
     """
     dtype = hdiag.dtype if dtype is None else dtype
-    finite = torch.where(hdiag.abs() > 1e20, torch.inf, hdiag)
-    lo = finite.min()
-    spread = 1.0 / (finite - lo + 1.0)
-    spread = spread / torch.linalg.norm(spread)
+    finite, spread = _finite_and_spread(hdiag)
     v0 = spread * 0.2
     v0[torch.argmin(finite)] += 1.0
     return v0.to(dtype)
+
+
+def davidson_initial_guess_k(hdiag: torch.Tensor, k: int, dtype: torch.dtype | None = None):
+    """``(k, dim)`` start block: one-hots at the k smallest diagonal entries.
+
+    Each row gets the same diagonal-weighted spread as
+    :func:`davidson_initial_guess`; rows are linearly independent (distinct
+    spikes).  Ties go to the lower index, as ``jax.lax.top_k`` breaks them.
+    """
+    dtype = hdiag.dtype if dtype is None else dtype
+    finite, spread = _finite_and_spread(hdiag)
+    idx = torch.sort(finite, stable=True).indices[:k]
+    block = (spread * 0.2).repeat(k, 1)
+    block[torch.arange(k, device=hdiag.device), idx] += 1.0
+    return block.to(dtype)
 
 
 class DavidsonResult(NamedTuple):
@@ -51,8 +82,17 @@ class DavidsonResult(NamedTuple):
     converged: bool
 
 
+class DavidsonKResult(NamedTuple):
+    thetas: torch.Tensor  # (k,) lowest Ritz values, ascending (real)
+    vectors: torch.Tensor  # (k, dim) normalized Ritz vectors
+    residual_norms: torch.Tensor  # (k,)
+    iterations: int
+    converged: bool  # all k residuals below tol
+
+
 def _masked_eigh(t: torch.Tensor, m: int):
-    """Eigenpairs of the active ``m x m`` block of ``t``, in f64.
+    """Eigenpairs of the active ``m x m`` block of ``t``, in f64 (complex128 for
+    a complex ``t``); the values come back real.
 
     Inactive rows get a diagonal above the active spectrum so their pairs
     sort last; active eigenvectors are zero in inactive rows.
@@ -62,8 +102,34 @@ def _masked_eigh(t: torch.Tensor, m: int):
     mask2 = active[:, None] & active[None, :]
     big = (t.abs().max() + 1.0) * 4.0
     t_masked = torch.where(mask2, t, 0.0) + torch.diag(torch.where(active, 0.0, big))
-    vals, vecs = torch.linalg.eigh(t_masked.to(torch.float64))
-    return vals.to(t.dtype), (vecs * active[:, None]).to(t.dtype)
+    wide = torch.complex128 if t.is_complex() else torch.float64
+    vals, vecs = torch.linalg.eigh(t_masked.to(wide))
+    return vals.to(real_dtype(t.dtype)), (vecs * active[:, None]).to(t.dtype)
+
+
+def _norm(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.vdot(a, a).real)
+
+
+def _precondition(hdiag, r, theta):
+    # clamp scaled to the spectrum: an absolute micro-clamp would turn the
+    # argmin-hdiag determinant into a spike parallel to the Ritz vector
+    clamp = 1e-3 * (1.0 + theta.abs())
+    denom = hdiag - theta
+    safe = torch.where(denom == 0, 1.0, denom)
+    denom = torch.where(denom.abs() < clamp, torch.where(safe < 0, -clamp, clamp), denom)
+    return r / denom
+
+
+def _orthonormalize(t_vec, v, m, eps):
+    """Two rounds of masked classical Gram-Schmidt against the first ``m`` rows
+    of ``v``; returns ``(vec, norm)``."""
+    active = (torch.arange(v.shape[0], device=v.device) < m).to(v.dtype)
+    for _ in range(2):
+        coeffs = (v.conj() @ t_vec) * active
+        t_vec = t_vec - v.T @ coeffs
+    nrm = _norm(t_vec)
+    return t_vec / torch.clamp(nrm, min=eps), nrm
 
 
 def davidson_ground_state(
@@ -76,7 +142,7 @@ def davidson_ground_state(
     max_subspace: int = 24,
     max_iterations: int = 200,
 ) -> DavidsonResult:
-    """Find the lowest eigenpair of the implicit symmetric operator.
+    """Find the lowest eigenpair of the implicit symmetric (or Hermitian) operator.
 
     Args:
         matvec: ``matvec(operator, x) -> Hx`` on flat ``(dim,)`` vectors.
@@ -84,7 +150,7 @@ def davidson_ground_state(
         hdiag: ``(dim,)`` diagonal for the preconditioner; padded entries
             hold a huge value so they are never selected or amplified.
         v0: ``(dim,)`` initial guess (need not be normalized); its dtype is the
-            working dtype.
+            working dtype (complex for a Hermitian operator).
         tol: residual-norm convergence threshold.
         max_subspace: Krylov buffer rows.
         max_iterations: matvec budget.
@@ -98,56 +164,33 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> Davidson
     dim = hdiag.shape[0]
     dt = v0.dtype
     dev = v0.device
-    eps = torch.finfo(dt).tiny ** 0.5
-    dep_eps = 64 * torch.finfo(dt).eps
+    eps = torch.finfo(real_dtype(dt)).tiny ** 0.5
+    dep_eps = 64 * torch.finfo(real_dtype(dt)).eps
     keep = max(1, min(mss // 3, 8))
     rows = torch.arange(mss, device=dev)
 
-    def norm(a):
-        return torch.sqrt(torch.dot(a, a))
-
-    def orthonormalize(t_vec, v, m):
-        """Two rounds of masked classical Gram-Schmidt; returns (vec, norm)."""
-        active = (rows < m).to(dt)
-        for _ in range(2):
-            coeffs = (v.conj() @ t_vec) * active
-            t_vec = t_vec - v.T @ coeffs
-        nrm = norm(t_vec)
-        return t_vec / torch.clamp(nrm, min=eps), nrm
-
-    def precondition(r, theta):
-        # clamp scaled to the spectrum: an absolute micro-clamp would turn the
-        # argmin-hdiag determinant into a spike parallel to the Ritz vector
-        clamp = 1e-3 * (1.0 + theta.abs())
-        denom = hdiag - theta
-        safe = torch.where(denom == 0, 1.0, denom)
-        denom = torch.where(
-            denom.abs() < clamp, torch.where(safe < 0, -clamp, clamp), denom
-        )
-        return r / denom
-
-    v0 = v0 / norm(v0)
+    v0 = v0 / _norm(v0)
     w0 = matvec(operator, v0)
     v = torch.zeros((mss, dim), dtype=dt, device=dev)
     w = torch.zeros((mss, dim), dtype=dt, device=dev)
     t = torch.zeros((mss, mss), dtype=dt, device=dev)
     v[0], w[0] = v0, w0
-    t[0, 0] = torch.dot(v0, w0)
-    theta = t[0, 0].clone()
+    t[0, 0] = torch.vdot(v0, w0)
+    theta = t[0, 0].real.clone()
     u, hu = v0, w0
-    rnorm = float(norm(w0 - theta * v0))
+    rnorm = float(_norm(w0 - theta * v0))
     m, it = 1, 0
     done = rnorm < tol
     while not done and it < max_iterations:
         r = hu - theta * u
-        pre = precondition(r, theta)
-        pre_norm = float(norm(pre))
-        t_new, nrm_pre = orthonormalize(pre, v, m)
+        pre = _precondition(hdiag, r, theta)
+        pre_norm = float(_norm(pre))
+        t_new, nrm_pre = _orthonormalize(pre, v, m, eps)
         # the clamped preconditioner can give a direction (almost) inside the
         # subspace: fall back to the raw residual, and stop at the precision
         # floor when that collapses too (reported as converged, as in sqd_tpu)
         if float(nrm_pre) <= dep_eps * max(pre_norm, eps):
-            t_new, nrm_raw = orthonormalize(r, v, m)
+            t_new, nrm_raw = _orthonormalize(r, v, m, eps)
             if float(nrm_raw) <= dep_eps * max(rnorm, eps):
                 it += 1
                 done = True
@@ -161,9 +204,9 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> Davidson
             w.zero_()
             t.zero_()
             v[:keep], w[:keep] = v_keep, w_keep
-            t[rows[:keep], rows[:keep]] = vals[:keep]
+            t[rows[:keep], rows[:keep]] = vals[:keep].to(dt)
             m = keep
-        t_ortho, _ = orthonormalize(t_new, v, m)
+        t_ortho, _ = _orthonormalize(t_new, v, m, eps)
         w_new = matvec(operator, t_ortho)
         v[m], w[m] = t_ortho, w_new
         col = (v.conj() @ w_new) * (rows <= m)
@@ -173,13 +216,111 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> Davidson
         vals, vecs = _masked_eigh(t, m)
         theta, y = vals[0], vecs[:, 0]
         u, hu = y @ v, y @ w
-        rnorm = float(norm(hu - theta * u))
+        rnorm = float(_norm(hu - theta * u))
         it += 1
         done = rnorm < tol
     return DavidsonResult(
         theta=float(theta),
-        vector=u / norm(u),
+        vector=u / _norm(u),
         residual_norm=rnorm,
         iterations=it,
         converged=done,
+    )
+
+
+def davidson_lowest_k(
+    matvec: Callable,
+    operator,
+    hdiag: torch.Tensor,
+    v0: torch.Tensor,
+    *,
+    k: int,
+    tol: float = 1e-5,
+    max_subspace: int = 32,
+    max_iterations: int = 300,
+) -> DavidsonKResult:
+    """Block Davidson: the k lowest eigenpairs of an implicit symmetric (or
+    Hermitian) operator.
+
+    Same contract as :func:`davidson_ground_state` generalized to a block:
+    ``v0`` is a ``(k, dim)`` start block (see :func:`davidson_initial_guess_k`);
+    each iteration expands the shared Krylov space with the preconditioned
+    residual of the lowest unconverged Ritz pair, and thick restarts keep at
+    least ``k + 2`` Ritz vectors, so converged pairs are never lost.
+    """
+    if k >= max_subspace - 2:
+        raise ValueError(f"max_subspace ({max_subspace}) must exceed k + 2 ({k + 2})")
+    with highest_precision():
+        return _davidson_k(matvec, operator, hdiag, v0, k, tol, max_subspace, max_iterations)
+
+
+def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations) -> DavidsonKResult:
+    dim = hdiag.shape[0]
+    dt = v0.dtype
+    dev = v0.device
+    eps = torch.finfo(real_dtype(dt)).tiny ** 0.5
+    dep_eps = 64 * torch.finfo(real_dtype(dt)).eps
+    keep = min(max(k + 2, min(mss // 3, 8)), mss - 2)
+    rows = torch.arange(mss, device=dev)
+
+    def ritz(v, w, t, m):
+        vals, vecs = _masked_eigh(t, m)
+        thetas = vals[:k]
+        y = vecs[:, :k]  # (mss, k)
+        u, hu = y.T @ v, y.T @ w
+        res = hu - thetas[:, None] * u
+        return thetas, u, hu, torch.sqrt((res * res.conj()).real.sum(dim=1))
+
+    # seed the basis with the orthonormalized start block (k matvecs)
+    v = torch.zeros((mss, dim), dtype=dt, device=dev)
+    w = torch.zeros((mss, dim), dtype=dt, device=dev)
+    for i in range(k):
+        v[i], _ = _orthonormalize(v0[i], v, i, eps)
+        w[i] = matvec(operator, v[i])
+    t = torch.zeros((mss, mss), dtype=dt, device=dev)
+    blk = v[:k].conj() @ w[:k].T
+    t[:k, :k] = 0.5 * (blk + blk.conj().T)  # symmetrize roundoff
+    m, it = k, 0
+    thetas, u, hu, rnorms = ritz(v, w, t, m)
+    done = bool((rnorms < tol).all())
+    while not done and it < max_iterations:
+        # the lowest unconverged Ritz pair drives the expansion
+        pick = int(torch.nonzero(rnorms >= tol)[0, 0])
+        r = hu[pick] - thetas[pick] * u[pick]
+        pre = _precondition(hdiag, r, thetas[pick])
+        pre_norm = float(_norm(pre))
+        t_new, nrm_pre = _orthonormalize(pre, v, m, eps)
+        if float(nrm_pre) <= dep_eps * max(pre_norm, eps):
+            t_new, nrm_raw = _orthonormalize(r, v, m, eps)
+            if float(nrm_raw) <= dep_eps * max(float(rnorms[pick]), eps):
+                it += 1
+                done = True
+                break
+        if m >= mss:
+            vals, vecs = _masked_eigh(t, m)
+            y = vecs[:, :keep]
+            v_keep, w_keep = y.T @ v, y.T @ w
+            v.zero_()
+            w.zero_()
+            t.zero_()
+            v[:keep], w[:keep] = v_keep, w_keep
+            t[rows[:keep], rows[:keep]] = vals[:keep].to(dt)
+            m = keep
+        t_ortho, _ = _orthonormalize(t_new, v, m, eps)
+        w_new = matvec(operator, t_ortho)
+        v[m], w[m] = t_ortho, w_new
+        col = (v.conj() @ w_new) * (rows <= m)
+        t[m, :] = col.conj()
+        t[:, m] = col
+        m += 1
+        thetas, u, hu, rnorms = ritz(v, w, t, m)
+        it += 1
+        done = bool((rnorms < tol).all())
+    row_norms = torch.sqrt((u * u.conj()).real.sum(dim=1))
+    return DavidsonKResult(
+        thetas=thetas,
+        vectors=u / torch.clamp(row_norms, min=eps)[:, None],
+        residual_norms=rnorms,
+        iterations=it,
+        converged=bool((rnorms < tol).all()),
     )

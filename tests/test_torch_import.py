@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from sqd_tpu_torch import configuration_recovery, fermion, subsampling
-from sqd_tpu_torch.primitives import BitArray
+from sqd_tpu_torch import configuration_recovery, fermion, qubit, subsampling
+from sqd_tpu_torch.ops import pauli_proj
+from sqd_tpu_torch.primitives import BitArray, SparsePauliOp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,7 +43,8 @@ def test_import_pulls_in_no_jax():
     names = set(names.split(","))
     assert len(names) >= 20  # the package, its subpackages and modules
     for module in ("counts", "primitives", "subsampling", "configuration_recovery",
-                   "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device"):
+                   "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device",
+                   "qubit", "ops.pauli_proj", "models.heisenberg"):
         assert f"sqd_tpu_torch.{module}" in names
     assert bad == "[]"
 
@@ -57,6 +59,8 @@ def test_cuda_request_raises_without_a_gpu(monkeypatch):
 _H1, _ERI = np.eye(4), np.zeros((4,) * 4)
 _STRS = np.array([0b111, 0b1011])
 _ROWS = np.array([[0, 1, 1, 1, 0, 1, 1, 1]] * 4, dtype=bool)
+_HAM = SparsePauliOp.from_list([("XXII", 1.0), ("ZIIZ", 0.5)])
+_PACKED = np.array([[0b0111], [0b1011]], dtype=np.uint32)
 ENTRY_POINTS = {
     "solve_sci": lambda: fermion.solve_sci((_STRS, _STRS), _H1, _ERI, 4, (3, 3)),
     "SCIState": lambda: fermion.SCIState(np.zeros((2, 2)), _STRS, _STRS, 4, (3, 3)),
@@ -68,6 +72,14 @@ ENTRY_POINTS = {
         _ROWS, np.full(4, 0.25), (np.full(4, 0.75), np.full(4, 0.75)), 3, 3),
     "subsample_device": lambda: subsampling.subsample_device(
         np.eye(8, dtype=bool), np.full(8, 0.125), 2, 3, torch.Generator()),
+    "solve_qubit_device": lambda: qubit.solve_qubit_device(_ROWS[:, :4], _HAM),
+    "solve_qubit": lambda: qubit.solve_qubit(_ROWS[:, :4], _HAM),
+    "project_operator_to_subspace": lambda: qubit.project_operator_to_subspace(_ROWS[:, :4], _HAM),
+    "matrix_elements_from_pauli": lambda: qubit.matrix_elements_from_pauli(
+        _ROWS[:, :4], _HAM.paulis[0]),
+    "build_projected_operator": lambda: pauli_proj.build_projected_operator(
+        _PACKED, _HAM.paulis, _HAM.coeffs),
+    "pauli_term_table": lambda: pauli_proj.pauli_term_table(_PACKED, _HAM.paulis[0]),
 }
 
 

@@ -84,7 +84,28 @@ Phases, each printing one line; any failure exits non-zero:
    a Dzyaloshinskii-Moriya term (complex128) and on the real ring, over 2e5
    strings (seed 8), within 1e-7 of ``solve_qubit(k=3, which="SA")`` with
    orthonormal columns.  This path reaches no Pallas kernel in ``sqd_tpu``,
-   so it has no CUDA kernel and no entry in the kernels' record.
+   so it has no CUDA kernel and no entry in the kernels' record;
+10. dense density-fitted solve — BASELINE config 5, ``bench.py``'s (54e,36o)
+   problem made here from its seed (:func:`config5_problem`: 36 orbitals,
+   27 + 27 electrons, synthetic PSD integrals of rank 108, the same 3163
+   two-word excitation strings for both spins, 10,004,569 determinants,
+   padded 3168 x 3200, npair 1296).  (a) the operator: ``eri_factor="auto"``
+   must attach the factor and the sparse same-spin tables must be built;
+   the kernel against its plain version at this shape, then timed beside
+   its bound; (b) ``DenseDFOperator.matvec`` (f32, ``wb`` aliasing ``wa``)
+   against the kernel-route f32 matvec and both against the f64 blocked
+   matvec (the kernel route within ``1e-5 * max(|f64|, 1)``, the dense
+   route, three f32 products in a row, within ``1e-4`` of it); one matvec of each route timed
+   beside its bound (dense: ``4 X P^3`` FLOPs at the f32 rate, P the common
+   padded width), with ``x_chunk`` 8 and the whole stack; ``densify``'s
+   seconds, the W-stack bytes and the peak memory; (c) ``solve_sci`` with
+   ``CONFIG5_SOLVER`` by ``matvec_strategy="gather"`` (must launch the
+   kernel) and ``"dense_df"`` (must launch none): each energy within 1e-7 Ha
+   of :func:`device_f64_energy` (the host quotient transcribed to torch f64
+   on the card, from the tables alone), the two within 1e-3 Ha, both
+   Davidsons converged; and both routes on the first 512 strings per spin
+   within 1e-7 Ha of the NumPy :func:`host_f64_energy`, which the device
+   quotient must also meet there.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -132,6 +153,16 @@ PROJ_CASES = ((40, 3, 4.17), (60, 4, 5.16))  # (qubits, seed, reference CPU seco
 QUBIT_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "qubit_heisenberg26_1e7.json")
 QUBIT_SOLVE = {"sites": 26, "h_z": 0.1, "d": 10_000_000, "seed": 7, "tol": 1e-6}
 QUBIT_K = {"sites": 20, "dm": 0.3, "d": 200_000, "seed": 8, "k": 3}
+# phase 10: BASELINE config 5, bench.py's (54e,36o) problem, by both solve routes
+CONFIG5 = {"norb": 36, "nelec": (27, 27), "strings": 3163, "rank": 108,
+           "integral_seed": 7, "string_seed": 1}
+CONFIG5_SOLVER = {"tol": 1e-4, "max_subspace": 12, "max_cycle": 200,  # bench.py's
+                  "with_rdms": False, "refine_iterations": 0}
+CONFIG5_SUB = 512  # strings per spin of the sub-shape held against the NumPy quotient
+TOL_ROUTES = 1e-3  # Ha between the two routes' energies (both stop at tol 1e-4)
+# the dense f32 matvec relative to max(|f64|, 1): three f32 products in a row,
+# each entry a sum over X * P = 108 * 3200 terms
+TOL_DENSE = 1e-4
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -241,6 +272,55 @@ def dm_ring_terms(n, dm):
             chars[n - 1 - i], chars[n - 1 - j] = a, b
             terms.append(("".join(chars), c))
     return terms
+
+
+def config5_problem(count=CONFIG5["strings"]):
+    """``bench.py``'s BASELINE config 5 from its seeds: ``(h1, eri, strings)``
+    for 36 orbitals and 27 electrons per spin, with a near-diagonal ``h1``,
+    PSD ``eri`` from a random symmetric factor of rank 108, and ``count``
+    excitation strings (int64, ascending) that serve both spins."""
+    import numpy as np
+
+    norb, rank = CONFIG5["norb"], CONFIG5["rank"]
+    rng = np.random.default_rng(CONFIG5["integral_seed"])
+    h1 = np.diag(np.linspace(-14.0, 4.0, norb)) + 0.05 * rng.normal(size=(norb, norb))
+    h1 = (h1 + h1.T) / 2
+    chol = rng.normal(size=(rank, norb, norb)) * (0.5 / np.sqrt(rank))
+    chol = (chol + chol.transpose(0, 2, 1)) / 2
+    eri = np.einsum("xpq,xrs->pqrs", chol, chol)
+    strs = excitation_strings(count, norb, CONFIG5["nelec"][0], CONFIG5["string_seed"])
+    return h1, eri, strs
+
+
+def device_f64_energy(ham, vec, row_block=64) -> float:
+    """:func:`host_f64_energy` transcribed to torch f64 on the operator's
+    device, for shapes where the NumPy pair Gram would take minutes: the
+    same quotient from the same tables, independent of
+    ``SCIHamiltonian.matvec`` and ``expectation_value``."""
+    import torch
+
+    dev = ham.src_a.device
+    m, n = ham.shape
+    c = torch.as_tensor(vec, dtype=torch.float64, device=dev).reshape(m, n)
+    c = c / torch.linalg.norm(c)
+    sign_b = ham.sign_b.to(torch.float64)[:, None, :]
+    npair = ham.eri_t.shape[0]
+    pab = torch.zeros((npair, npair), dtype=torch.float64, device=dev)
+    for i0 in range(0, m, row_block):
+        rows = slice(i0, i0 + row_block)
+        sign_blk = ham.sign_a[:, rows]
+        live = torch.nonzero((sign_blk != 0).any(dim=1))[:, 0]
+        d_a = sign_blk[live].to(torch.float64)[:, :, None] * c[ham.src_a[live, rows]]
+        d_b = c[rows][:, ham.src_b].transpose(0, 1) * sign_b  # (npair, rows, n)
+        pab[live] += d_a.reshape(len(live), -1) @ d_b.reshape(npair, -1).T
+        del d_a, d_b
+    e = torch.sum(ham.eri_t.to(torch.float64) * pab.T)
+    gram_r, gram_c = c @ c.T, c.T @ c
+    e += torch.sum(ham.nbr_val_a.to(torch.float64)
+                   * gram_r[ham.nbr_idx_a, torch.arange(m, device=dev)[:, None]])
+    e += torch.sum(ham.nbr_val_b.to(torch.float64)
+                   * gram_c[ham.nbr_idx_b, torch.arange(n, device=dev)[:, None]])
+    return float(e)
 
 
 def host_f64_energy(ham, vec, row_block=32) -> float:
@@ -376,8 +456,8 @@ def time_kernel(label, ham, rng, smi, rounds=10, calls=10) -> dict:
 
 STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
          "table builds + upload", "solves (tables included)")
-SOLVE_STAGES = ("host tables", "f32 Davidson", "f64 refinement", "RDMs",
-                "two-hole tables (host, in RDMs)", "f64 energy")
+SOLVE_STAGES = ("host tables", "densify", "f32 Davidson", "f64 refinement", "RDMs",
+                "two-hole tables (device, in RDMs)", "f64 energy")
 BLOCKED_VARIANTS = ("_SCIHamiltonian__matvec_blocked",
                     "_SCIHamiltonian__matvec_blocked_beta_first_rowmajor")
 
@@ -396,6 +476,7 @@ class Probe:
         self.variants: list[str] = []
         self.sparse_fills = 0
         self.davidson: list[tuple[str, int]] = []  # (stage, iterations) of each call
+        self.davidson_runs: list[dict] = []  # converged, kernel launches of each call
         self.history: list[list] = []
         self._originals = []
 
@@ -487,28 +568,33 @@ class Probe:
             self.timed(owner, name, key)
 
     def solve_stages(self):
-        """Time the stages of each solve (phases 7 and 8): the host tables,
-        each Davidson run by its dtype, the RDMs with their host two-hole
-        tables, and the f64 energy."""
+        """Time the stages of each solve (phases 7, 8 and 10): the host
+        tables, the dense operator's build, each Davidson run by its dtype,
+        the RDMs with their two-hole tables, and the f64 energy."""
         from sqd_tpu_torch import fermion, native
-        from sqd_tpu_torch.ops import linktab
+        from sqd_tpu_torch.ops import cross_spin, linktab
         from sqd_tpu_torch.ops import rdm as rdm_ops
 
         self.timed(native, "gather_tables", "host tables")
         self.timed(native, "samespin_tables", "host tables")
         self.timed(rdm_ops, "make_rdms", "RDMs")
-        self.timed(linktab, "build_desdes_tables", "two-hole tables (host, in RDMs)")
+        self.timed(linktab, "build_desdes_tables", "two-hole tables (device, in RDMs)")
         self.timed(fermion, "expectation_value", "f64 energy")
+        self.timed(fermion, "densify", "densify")
 
         def davidson_stage(fn):
             def wrapper(matvec, operator, hdiag, v0, **kwargs):
                 stage = "f32 Davidson" if v0.dtype.itemsize == 4 else "f64 refinement"
+                launches = cross_spin.cross_spin_matvec.launches
                 sync()
                 t0 = time.perf_counter()
                 out = fn(matvec, operator, hdiag, v0, **kwargs)
                 sync()
                 self.spans[-1][stage] = self.spans[-1].get(stage, 0.0) + time.perf_counter() - t0
                 self.davidson.append((stage, out.iterations))
+                self.davidson_runs.append({
+                    "converged": out.converged, "residual": out.residual_norm,
+                    "launches": cross_spin.cross_spin_matvec.launches - launches})
                 return out
             return wrapper
 
@@ -1016,6 +1102,217 @@ def qubit_k_phase(dev, smi) -> None:
                 fail(f"qubit k = {k} [{name}]: {what}")
 
 
+def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float]:
+    """Phase 10: BASELINE config 5 by the gather route and the dense
+    density-fitted route.  Returns the kernel's launches in the gather solve,
+    its times at this shape and its largest difference from the plain
+    version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import fermion, native
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import hamiltonian as ham_ops
+    from sqd_tpu_torch.ops.dense_df import densify
+
+    norb, nelec = CONFIG5["norb"], CONFIG5["nelec"]
+    h1, eri, strs = config5_problem()
+    packed = bitpack.pack_ints(strs, norb)
+    pad = -(-len(strs) // 32) * 32  # solve_sci's pad_bucket
+
+    # -- (a) the operator, and the kernel at npair 1296 -----------------------
+    with Probe() as probe:
+        sync()
+        t0 = time.perf_counter()
+        ham64 = ham_ops.build_sci_hamiltonian(packed, packed, h1, eri, norb, nelec, device=dev,
+                                              pad_to=(pad, pad))
+        sync()
+        t_build = time.perf_counter() - t0
+    ham32 = ham64.astype(torch.float32)
+    m, n = ham64.shape
+    rank = None if ham64.eri_chol is None else ham64.eri_chol.shape[0]
+    # why (c) passes with_rdms=False: the same-spin 2-RDMs' two-hole tables
+    two_hole = len(native.desdes_unique(packed, nelec[0]))
+    print(f"config 5: {len(strs)} x {len(strs)} = {len(strs) ** 2} determinants of {norb} "
+          f"orbitals, {packed.shape[1]}-word strings, operator {(m, n)}, npair {norb * norb}, "
+          f"col_block {ham64.col_block}, eri_factor 'auto' rank {rank}, same-spin lists "
+          f"{tuple(ham64.nbr_idx_a.shape)} ({probe.sparse_fills} sparse fills), {two_hole} "
+          f"two-hole intermediates per spin (an int64 (npair, K) table of "
+          f"{norb * norb * two_hole * 8 / 1e9:.1f} GB, so no 2-RDM here); build "
+          f"{t_build:.3f} s ({smi})", flush=True)
+    checks = {
+        "two-word strings": packed.shape[1] == 2,
+        "'auto' attached a factor of rank <= npair // 3": rank is not None
+        and rank <= norb * norb // 3,
+        "the sparse same-spin tables were built": probe.sparse_fills >= 2,
+        "padded to (3168, 3200) with a column block": (m, n) == (3168, 3200)
+        and ham64.col_block > 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"config 5: {what}")
+    err = check_kernel("config5", ham32, rng)
+    timing = time_kernel("config5", ham32, rng, smi, rounds=3, calls=3)
+    timing["max_abs_err"] = err
+
+    # -- (b) one matvec by each route -------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sync()
+    t0 = time.perf_counter()
+    dense = densify(ham64, dtype=torch.float32)
+    sync()
+    t_densify = time.perf_counter() - t0
+    peak_densify = torch.cuda.max_memory_allocated() - base
+    aliased = dense.wb.data_ptr() == dense.wa.data_ptr()
+    stack_bytes = dense.wa.numel() * dense.wa.element_size() * (1 if aliased else 2)
+    c32 = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    c32[: len(strs), : len(strs)] = torch.as_tensor(
+        rng.normal(size=(len(strs), len(strs))), dtype=torch.float32, device=dev)
+    ref = ham64.matvec(c32.to(torch.float64))
+    by_dense, by_kernel = dense.matvec(c32), ham32.matvec(c32)
+    scale = max(float(ref.abs().max()), 1.0)
+    diffs = {  # what: (largest difference, bound)
+        "kernel-route f32 vs blocked f64": (float((by_kernel - ref).abs().max()),
+                                            TOL_KERNEL * scale),
+        "dense f32 vs blocked f64": (float((by_dense - ref).abs().max()), TOL_DENSE * scale),
+        "dense f32 vs kernel-route f32": (float((by_dense - by_kernel).abs().max()),
+                                          TOL_DENSE * scale),
+    }
+    del ref, by_dense, by_kernel
+    whole = dataclasses.replace(dense, x_chunk=0)
+    routes = {
+        "gather (kernel route)": lambda: ham32.matvec(c32),
+        "dense x_chunk 8": lambda: dense.matvec(c32),
+        "dense whole stack": lambda: whole.matvec(c32),
+    }
+    whole.matvec(c32)  # warm; the other two ran above
+    rounds = {key: [] for key in routes}
+    for _ in range(3):  # in turns
+        for key, fn in routes.items():
+            rounds[key].append(event_ms(fn, 2))
+    ms = {key: float(np.median(times)) for key, times in rounds.items()}
+    peak_matvec = torch.cuda.max_memory_allocated() - base
+    # the dense route's least time: 4 X P^3 FLOPs of f32 products at the common
+    # padded width P (plus the two same-spin products), and the factors, c and
+    # sigma moved once
+    x_tot, p_w = dense.wa.shape[0], dense.wa.shape[1]
+    flops = 4.0 * x_tot * p_w ** 3 + 4.0 * p_w ** 3
+    moved = stack_bytes + dense.haa.numel() * 4 * (1 if aliased else 2) + 2 * m * n * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, moved / PEAK_HBM_BYTES * 1e3
+    dense_bound = max(t_ops, t_bytes)
+    print(f"config 5 matvec ({smi}): densify {t_densify:.3f} s (peak {peak_densify / 1e9:.2f} GB "
+          f"over the operator's tables), W stack {tuple(dense.wa.shape)} f32 = "
+          f"{stack_bytes / 1e9:.3f} GB, wb aliases wa: {aliased}; one f32 matvec: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (medians of 3 rounds of 2 calls, CUDA events); dense bound {flops / 1e12:.3f} "
+          f"TFLOP at 67 TFLOP/s = {t_ops:.2f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s = "
+          f"{t_bytes:.2f} ms), x_chunk 8 at {dense_bound / ms['dense x_chunk 8']:.1%} of it; "
+          f"the kernel alone {timing['ms']:.2f} ms of the gather route (bound "
+          f"{timing['bound_ms']:.3f} ms); peak with the matvecs {peak_matvec / 1e9:.2f} GB; "
+          + ", ".join(f"{k} {d:.3e} (bound {b:.3e})" for k, (d, b) in diffs.items()),
+          flush=True)
+    if not aliased:
+        fail("config 5: densify built a second W stack for identical string sets")
+    for what, (diff, bound) in diffs.items():
+        if not diff <= bound:
+            fail(f"config 5: {what} differ by {diff:.3e}")
+    del dense, whole, ham32, c32
+    torch.cuda.empty_cache()
+
+    # -- (c) solve_sci by both strategies -----------------------------------------
+    def solve(count, strategy):
+        with Probe() as probe:
+            probe.timed(fermion, "build_sci_hamiltonian", "table builds + upload")
+            probe.solve_stages()
+            cross_spin.cross_spin_matvec.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            result = fermion.solve_sci((strs[:count], strs[:count]), h1, eri, norb, nelec,
+                                       device=dev, matvec_strategy=strategy, **CONFIG5_SOLVER)
+            sync()
+            seconds = time.perf_counter() - t0
+            launches = cross_spin.cross_spin_matvec.launches
+        run = probe.davidson_runs[0]
+        span = probe.spans[-1]
+        stages = ", ".join(f"{k} {span[k]:.3f} s"
+                           for k in ("table builds + upload", *SOLVE_STAGES) if k in span)
+        print(f"config 5 solve_sci [{strategy}, {count} strings per spin] ({smi}): "
+              f"{seconds:.3f} s; {stages}; Davidson {probe.davidson}, converged "
+              f"{run['converged']}, residual {run['residual']:.3e}, kernel launches in it "
+              f"{run['launches']} ({launches} in the solve); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        if not (len(probe.davidson_runs) == 1 and run["converged"]):
+            fail(f"config 5 [{strategy}, {count}]: one converged f32 Davidson expected")
+        if (run["launches"] > 0) != (strategy == "gather"):
+            fail(f"config 5 [{strategy}, {count}]: {run['launches']} kernel launches in the "
+                 f"Davidson")
+        return result, launches
+
+    def padded(amps, shape):
+        vec = np.zeros(shape)
+        vec[: amps.shape[0], : amps.shape[1]] = amps
+        return vec
+
+    # the sub-shape, where the NumPy quotient takes seconds
+    sub = bitpack.pack_ints(strs[:CONFIG5_SUB], norb)
+    ham_sub = ham_ops.build_sci_hamiltonian(sub, sub, h1, eri, norb, nelec, device=dev,
+                                            eri_factor=None)
+    sub_diffs = {}
+    for strategy in ("gather", "dense_df"):
+        result, _ = solve(CONFIG5_SUB, strategy)
+        vec = padded(result.sci_state.amplitudes, ham_sub.shape)
+        t0 = time.perf_counter()
+        e_host = host_f64_energy(ham_sub, vec)
+        t_host = time.perf_counter() - t0
+        sub_diffs[f"{strategy}: |E - host f64|"] = abs(result.energy - e_host)
+        sub_diffs[f"{strategy}: |device quotient - host f64|"] = abs(
+            device_f64_energy(ham_sub, vec) - e_host)
+    print(f"config 5 at {CONFIG5_SUB} strings per spin: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sub_diffs.items())
+          + f" (NumPy quotient {t_host:.2f} s)", flush=True)
+    for what, diff in sub_diffs.items():
+        if not diff < TOL_ENERGY:
+            fail(f"config 5 sub-shape: {what} = {diff:.3e}")
+    del ham_sub
+
+    results = {}
+    for strategy in ("gather", "dense_df"):
+        result, launches = solve(len(strs), strategy)
+        sync()
+        t0 = time.perf_counter()
+        e_quot = device_f64_energy(ham64, padded(result.sci_state.amplitudes, ham64.shape))
+        t_quot = time.perf_counter() - t0
+        results[strategy] = (result, launches, e_quot)
+        occ_a, occ_b = result.orbital_occupancies
+        print(f"config 5 [{strategy}]: energy {result.energy:.10f} Ha, |E - device f64 "
+              f"quotient| {abs(result.energy - e_quot):.3e} (quotient {t_quot:.2f} s)",
+              flush=True)
+        checks = {
+            "energy within 1e-7 Ha of the f64 quotient": abs(result.energy - e_quot) < TOL_ENERGY,
+            "amplitudes (3163, 3163) and finite": result.sci_state.amplitudes.shape
+            == (len(strs), len(strs)) and bool(np.isfinite(result.sci_state.amplitudes).all()),
+            "occupancies sum to (27, 27)": abs(occ_a.sum() - 27) < 1e-8
+            and abs(occ_b.sum() - 27) < 1e-8,
+            "no 2-RDM was asked for": result.rdm2 is None,
+        }
+        for what, ok in checks.items():
+            if not ok:
+                fail(f"config 5 [{strategy}]: {what}")
+    between = abs(results["gather"][0].energy - results["dense_df"][0].energy)
+    print(f"config 5: |E(gather) - E(dense_df)| {between:.3e} Ha (gate {TOL_ROUTES:.0e})",
+          flush=True)
+    if not between < TOL_ROUTES:
+        fail("config 5: the two routes' energies differ")
+    if results["dense_df"][1] != 0 or results["gather"][1] == 0:
+        fail("config 5: the kernel must launch in the gather solve and not in the dense one")
+    return results["gather"][1], timing, err
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1222,6 +1519,11 @@ def main() -> None:
     qubit_k_phase(dev, smi)
     print(f"qubit path: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 10. BASELINE config 5 by the gather and the dense density-fitted route
+    t0 = time.perf_counter()
+    config5_launches, config5, config5_err = dense_df_phase(dev, smi, rng)
+    print(f"config 5: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
@@ -1231,13 +1533,14 @@ def main() -> None:
         "launches_sqd_loop": loop_launches,
         "launches_casci": casci_launches,
         "launches_ccpvdz_loop": ccpvdz_launches,
-        "max_abs_err": max(*errs.values(), casci_err),
+        "launches_config5_gather": config5_launches,
+        "max_abs_err": max(*errs.values(), casci_err, config5_err),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this contraction
-        "at_shapes": {"ccpvdz": ccpvdz, "casci": casci},
+        "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

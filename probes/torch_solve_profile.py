@@ -6,7 +6,8 @@ excitation strings, committed FCIDUMP) three ways and prints one JSON line:
 
 * phases — the steps of ``solve_sci`` called one by one with a synchronised
   host clock around each (host tables + upload, f32 Davidson, f64 refine,
-  RDMs and, inside them, the host-built two-hole tables, f64 energy);
+  RDMs and, inside them, the two-hole tables (host enumeration, device
+  build), f64 energy);
 * solve — the whole ``solve_sci`` call, warm, on the host clock, with the peak
   device memory;
 * profile — ``torch.profiler`` over one warm ``solve_sci``: device time by
@@ -86,7 +87,8 @@ def main() -> None:
         tol=1e-6, max_iterations=6))
     vec = res64.vector.reshape(ham64.shape)
     _, phases["rdms_f64"] = timed(lambda: rdm_ops.make_rdms(ham64, vec, pa, pb))
-    # the host part of the RDMs: two-hole tables in NumPy (inside rdms_f64)
+    # the two-hole tables of the RDMs (inside rdms_f64): the enumeration runs
+    # on the host, the search over all pairs on the device
     _, phases["of_which_two_hole_tables"] = timed(lambda: [
         linktab.build_desdes_tables(p, norb, 5, device=dev) for p in (pa, pb)])
     _, phases["energy_f64"] = timed(lambda: expectation_value(ham64, vec, spin_penalty=False))

@@ -24,6 +24,9 @@ ported slices, module for module under the same names:
   rows across the loop's solves.
 * :mod:`sqd_tpu_torch.ops.cross_spin` — the opposite-spin channel: a CUDA
   kernel for tensors on the card, its plain PyTorch version for the CPU.
+* :mod:`sqd_tpu_torch.ops.dense_df` — the dense density-fitted operator
+  behind ``solve_sci(matvec_strategy="dense_df")``: batched matrix products
+  in place of the gathers.
 * :mod:`sqd_tpu_torch.ops.davidson` — the Davidson solvers (lowest pair and
   block of k), real symmetric or complex Hermitian.
 * :mod:`sqd_tpu_torch.ops.bitpack` — packed bitstrings, on the host (NumPy)
@@ -39,8 +42,41 @@ against ``sqd_tpu``; ``python3 chip_smoke.py`` checks the port on the card,
 its phase 9 the qubit path (``tools/make_qubit_data.py`` writes its
 ``sqd_tpu`` record).
 
-Nothing here imports JAX or ``sqd_tpu``.  Every public entry point runs on
-the card (``device="cuda"``) unless the caller passes another device.
+The package re-exports the names ``sqd_tpu`` re-exports; those not ported
+yet raise ``NotImplementedError`` when called.  Nothing here imports JAX or
+``sqd_tpu``, and importing builds no native code and touches no device.  Every
+public entry point runs on the card (``device="cuda"``) unless the caller
+passes another device.
 """
 
 __version__ = "0.1.0"
+
+from .counts import (  # noqa: E402,F401
+    bit_array_to_arrays,
+    bitstring_matrix_to_integers,
+    counts_to_arrays,
+    generate_bit_array_uniform,
+    generate_counts_bipartite_hamming,
+    generate_counts_uniform,
+    normalize_counts_dict,
+)
+from .configuration_recovery import recover_configurations  # noqa: E402,F401
+from .subsampling import (  # noqa: E402,F401
+    postselect_and_subsample,
+    postselect_by_hamming_right_and_left,
+    subsample,
+)
+from .fermion import (  # noqa: E402,F401
+    SCIResult,
+    SCIState,
+    bitstring_matrix_to_ci_strs,
+    diagonalize_fermionic_hamiltonian,
+    enlarge_batch_from_transitions,
+    optimize_orbitals,
+    rotate_integrals,
+    solve_fermion,
+    solve_sci,
+    solve_sci_batch,
+)
+from .primitives import BitArray, Pauli, SparsePauliOp  # noqa: E402,F401
+from . import qubit  # noqa: E402,F401

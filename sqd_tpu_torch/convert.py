@@ -14,6 +14,11 @@ The fields arrive as numpy arrays, so nothing here imports ``sqd_tpu``::
                                    has_diag=op_jax.has_diag,
                                    packed_weights=op_jax.packed_weights,
                                    scan_matvec=op_jax.scan_matvec, device="cuda")
+
+    fields = {k: np.asarray(getattr(dense_jax, k)) for k in DENSE_DF_FIELDS}
+    dense = dense_df_operator_from_numpy(
+        fields, x_chunk=dense_jax.x_chunk, aliased=dense_jax.wb is dense_jax.wa,
+        device="cuda")
 """
 
 from __future__ import annotations
@@ -21,12 +26,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.dense_df import DenseDFOperator
 from .ops.hamiltonian import SCIHamiltonian
 from .ops.pauli_proj import ProjectedPauliOperator
 
 __all__ = [
-    "FIELDS", "OPTIONAL_FIELDS", "PAULI_FIELDS", "hamiltonian_from_numpy",
-    "pauli_operator_from_numpy",
+    "DENSE_DF_FIELDS", "FIELDS", "OPTIONAL_FIELDS", "PAULI_FIELDS",
+    "dense_df_operator_from_numpy", "hamiltonian_from_numpy", "pauli_operator_from_numpy",
 ]
 
 FIELDS = (
@@ -127,3 +133,28 @@ def pauli_operator_from_numpy(
         packed_weights=bool(packed_weights),
         scan_matvec=bool(scan_matvec),
     )
+
+
+DENSE_DF_FIELDS = ("wa", "wb", "haa", "hbb", "hdiag")
+
+
+def dense_df_operator_from_numpy(
+    fields: dict, *, x_chunk: int, aliased: bool = False, device
+) -> DenseDFOperator:
+    """The port's :class:`DenseDFOperator` from ``sqd_tpu``'s fields.
+
+    With ``aliased`` (``sqd_tpu``'s ``wb is wa``, the identical-set case) the
+    beta factors are the alpha tensors themselves, as :func:`densify` builds
+    them.  ``DENSE_DF_FIELDS`` are required; missing or unknown fields raise
+    ``KeyError``.
+    """
+    if set(fields) != set(DENSE_DF_FIELDS):
+        raise KeyError(f"expected fields {sorted(DENSE_DF_FIELDS)}, got {sorted(fields)}")
+    skip = ("wb", "hbb") if aliased else ()
+    t = {
+        name: torch.as_tensor(np.array(fields[name]), device=device)  # a writable copy
+        for name in DENSE_DF_FIELDS if name not in skip
+    }
+    if aliased:
+        t["wb"], t["hbb"] = t["wa"], t["haa"]
+    return DenseDFOperator(**t, x_chunk=int(x_chunk))

@@ -17,8 +17,8 @@ Every entry point runs on the card (``device="cuda"``) unless the caller
 passes another device; a CUDA request without a card raises.  Not ported yet
 (ROADMAP.md), and raising ``NotImplementedError``: the loop's
 ``checkpoint_path``, ``SCIState.save``/``load``, :func:`solve_sci_excited`,
-:func:`optimize_orbitals`, :func:`enlarge_batch_from_transitions` and the
-dense density-fitted operator (``matvec_strategy="dense_df"``).
+:func:`optimize_orbitals`, :func:`rotate_integrals`,
+:func:`apply_excitations` and :func:`enlarge_batch_from_transitions`.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from .counts import bit_array_to_arrays, bitstring_matrix_to_integers
 from .ops import bitpack
 from .ops import rdm as rdm_ops
 from .ops.davidson import davidson_ground_state, davidson_initial_guess
+from .ops.dense_df import dense_df_matvec_flat, densify
 from .ops.hamiltonian import (
     SCIBasis,
     build_sci_basis,
@@ -53,6 +54,7 @@ __all__ = [
     "diagonalize_fermionic_hamiltonian",
     "enlarge_batch_from_transitions",
     "optimize_orbitals",
+    "rotate_integrals",
     "solve_fermion",
     "solve_sci",
     "solve_sci_batch",
@@ -254,8 +256,14 @@ def solve_sci(
             solution; ``None`` resolves to 6 for f32 solves and 0 for f64.
         with_rdms: attach the spin-summed 2-RDM (``rdm1`` and occupancies are
             always computed).
-        matvec_strategy: only ``"gather"`` is ported; ``"dense_df"`` raises
-            ``NotImplementedError``.
+        matvec_strategy: ``"gather"`` (default) iterates with the gather-table
+            matvec (in f32 through the cross-spin kernel); ``"dense_df"``
+            iterates with the dense density-fitted operator
+            (:mod:`sqd_tpu_torch.ops.dense_df`: batched matrix products, no
+            gathers; needs a PSD ERI factor and no spin penalty).  The f64
+            refinement, the energy and the RDMs come from the exact operator
+            either way; at very large ``norb`` each refine iteration costs a
+            dense-ERI f64 matvec, so consider ``refine_iterations=0`` there.
         table_cache: an :class:`~sqd_tpu_torch.ops.table_cache.TableCache`
             reused across solves on the same integrals (same tables, less
             host work).
@@ -272,12 +280,6 @@ def solve_sci(
         An :class:`SCIResult` with f64 energy, state, occupancies and RDMs.
     """
     device = checked_device(device)
-    if matvec_strategy == "dense_df":
-        raise NotImplementedError(
-            "matvec_strategy='dense_df' is not ported yet; see ROADMAP.md"
-        )
-    if matvec_strategy != "gather":
-        raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
     strs_a, strs_b = _check_ci_strs(ci_strings)
     norb = int(one_body_tensor.shape[0])
     pa = _strings_to_packed(strs_a, norb)
@@ -309,10 +311,31 @@ def solve_sci(
     scale = float(torch.where(hd_flat.abs() > 1e20, 0.0, hd_flat).abs().max())
     eps = torch.finfo(solver_dtype).eps
     tol_eff = max(tol, 32 * eps * max(1.0, scale))
-    result = davidson_ground_state(
-        sci_matvec_flat, ham, hd_flat, v0,
-        tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
-    )
+    if matvec_strategy == "dense_df":
+        if spin_sq is not None:
+            raise ValueError(
+                "matvec_strategy='dense_df' does not support the fused spin "
+                "penalty (non-PSD mixed term); use spin_sq=None"
+            )
+        if ham64.eri_chol is None:
+            raise ValueError(
+                "matvec_strategy='dense_df' requires a PSD ERI factor — "
+                "needs npair > 256 and symmetric PSD two_body_tensor "
+                "(see build_sci_hamiltonian(eri_factor=...))"
+            )
+        dense_op = densify(ham64, dtype=solver_dtype)
+        result = davidson_ground_state(
+            dense_df_matvec_flat, dense_op, hd_flat, v0,
+            tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
+        )
+        del dense_op  # the W stacks: freed before the f64 tail
+    elif matvec_strategy == "gather":
+        result = davidson_ground_state(
+            sci_matvec_flat, ham, hd_flat, v0,
+            tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
+        )
+    else:
+        raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
     vec_flat = result.vector.to(torch.float64)
     if refine_iterations > 0 and solver_dtype != torch.float64:
         result64 = davidson_ground_state(
@@ -354,6 +377,18 @@ def solve_sci_excited(*args, **kwargs):
 def optimize_orbitals(*args, **kwargs):
     """Orbital optimization (``sqd_tpu.fermion.optimize_orbitals``): not ported yet."""
     raise NotImplementedError("optimize_orbitals is not ported yet; see ROADMAP.md")
+
+
+def rotate_integrals(*args, **kwargs):
+    """Orbital rotation of the integrals (``sqd_tpu.fermion.rotate_integrals``):
+    not ported yet."""
+    raise NotImplementedError("rotate_integrals is not ported yet; see ROADMAP.md")
+
+
+def apply_excitations(*args, **kwargs):
+    """Excitation operators on bitstring rows (``sqd_tpu.fermion.apply_excitations``):
+    not ported yet."""
+    raise NotImplementedError("apply_excitations is not ported yet; see ROADMAP.md")
 
 
 def enlarge_batch_from_transitions(*args, **kwargs):

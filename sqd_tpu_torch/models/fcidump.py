@@ -7,7 +7,7 @@ import re
 
 import numpy as np
 
-__all__ = ["read_fcidump"]
+__all__ = ["read_fcidump", "write_fcidump"]
 
 
 def read_fcidump(path) -> dict:
@@ -74,3 +74,9 @@ def read_fcidump(path) -> dict:
         "nelec": (n_alpha, n_beta),
         "ms2": ms2,
     }
+
+
+def write_fcidump(*args, **kwargs):
+    """Write integrals as FCIDUMP (``sqd_tpu.models.fcidump.write_fcidump``):
+    not ported yet."""
+    raise NotImplementedError("write_fcidump is not ported yet; see ROADMAP.md")

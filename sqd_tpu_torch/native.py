@@ -19,6 +19,7 @@ import numpy as np
 from .build import load_library
 
 __all__ = [
+    "available",
     "compact_neighbours",
     "connected_membership",
     "desdes_unique",
@@ -81,6 +82,13 @@ def load() -> ctypes.CDLL:
     ]
     lib.pauli_diag_from_packed.restype = None
     return lib
+
+
+def available() -> bool:
+    """True once the native library is built and loaded.  The port has no
+    NumPy fallback: a build or load that fails raises here instead."""
+    load()
+    return True
 
 
 def popcount_rows(packed: np.ndarray) -> np.ndarray:

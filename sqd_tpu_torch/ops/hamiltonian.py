@@ -42,6 +42,7 @@ from .precision import highest_precision
 __all__ = [
     "SCIBasis",
     "SCIHamiltonian",
+    "build_samespin_tables",
     "build_sci_basis",
     "build_sci_hamiltonian",
     "expectation_value",
@@ -546,6 +547,13 @@ def _check_weights(strs_a_packed, strs_b_packed, nelec) -> None:
             raise ValueError(
                 f"{name} CI strings have Hamming weight {bad}, expected nelec = {want}"
             )
+
+
+def build_samespin_tables(*args, **kwargs):
+    """The device build of the same-spin neighbour lists
+    (``sqd_tpu.ops.hamiltonian.build_samespin_tables``): not ported yet; the
+    lists come from :func:`sqd_tpu_torch.native.samespin_tables`."""
+    raise NotImplementedError("build_samespin_tables is not ported yet; see ROADMAP.md")
 
 
 def build_sci_basis(

@@ -26,6 +26,7 @@ from .hamiltonian import SCIBasis
 __all__ = [
     "energy_from_rdms",
     "make_rdms",
+    "rdm1",
     "rdm1s",
     "rdm2_spin_summed",
     "rdm2s",
@@ -185,6 +186,11 @@ def make_rdms(
 def rdm1s(ham: SCIBasis, c: torch.Tensor):
     r = make_rdms(ham, c, with_dm2=False)
     return r["dm1a"], r["dm1b"]
+
+
+def rdm1(ham: SCIBasis, c: torch.Tensor):
+    a, b = rdm1s(ham, c)
+    return a + b
 
 
 def rdm2_spin_summed(ham: SCIBasis, c: torch.Tensor, strs_a_packed, strs_b_packed):

@@ -28,6 +28,7 @@ from . import native
 from .ops import bitpack
 from .ops.davidson import (
     davidson_ground_state,
+    davidson_initial_block,
     davidson_initial_guess,
     davidson_initial_guess_k,
     davidson_lowest_k,
@@ -213,7 +214,11 @@ def solve_qubit_device(
     ``k > 1`` returns ``(energies, eigenvectors, operator)``: ``energies``
     ascending, ``eigenvectors`` of shape ``(d, k)`` (the column convention of
     ``scipy.sparse.linalg.eigsh``), from the f64 block Davidson
-    (:func:`sqd_tpu_torch.ops.davidson.davidson_lowest_k`).
+    (:func:`sqd_tpu_torch.ops.davidson.davidson_lowest_k`).  A complex operator
+    solves ``2k`` pairs from
+    :func:`~sqd_tpu_torch.ops.davidson.davidson_initial_block` and returns
+    the lowest ``k``, which reaches a lowest level held by a string that
+    nothing connects to the rest; ``max_subspace`` is raised to hold them.
 
     The subspace may be given as a ``(d, W)`` uint32 packed-word matrix
     instead of a bool matrix.  The operator is built with ``weights="auto"``
@@ -230,12 +235,20 @@ def solve_qubit_device(
     hd = op.hdiag
     if k > 1:
         vdt = _vector_dtype(torch.float64, op)
+        # sqd_tpu's real embedding of a complex operator holds every level
+        # twice, and the two copies of a start one-hot cancel their spread
+        if op.is_complex:
+            pairs = 2 * k
+            v0 = davidson_initial_block(hd, pairs, vdt)
+        else:
+            pairs = k
+            v0 = davidson_initial_guess_k(hd, k, vdt)
         res = davidson_lowest_k(
-            pauli_apply_flat, op, hd, davidson_initial_guess_k(hd, k, vdt),
-            k=k, tol=tol, max_subspace=max(max_subspace, 2 * k + 4),
+            pauli_apply_flat, op, hd, v0,
+            k=pairs, tol=tol, max_subspace=max(max_subspace, 2 * pairs + 4),
             max_iterations=max_iterations,
         )
-        return res.thetas.cpu().numpy(), res.vectors.T.cpu().numpy(), op
+        return res.thetas[:k].cpu().numpy(), res.vectors[:k].T.cpu().numpy(), op
 
     work = torch.float64 if dtype is None else real_dtype(dtype)
     if dtype is not None:

@@ -44,9 +44,32 @@ def test_import_pulls_in_no_jax():
     assert len(names) >= 20  # the package, its subpackages and modules
     for module in ("counts", "primitives", "subsampling", "configuration_recovery",
                    "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device",
-                   "qubit", "ops.pauli_proj", "models.heisenberg"):
+                   "qubit", "ops.pauli_proj", "models.heisenberg", "ops.dense_df"):
         assert f"sqd_tpu_torch.{module}" in names
     assert bad == "[]"
+
+
+_IMPORT_PACKAGE = """
+import sys
+import sqd_tpu_torch
+import torch
+from sqd_tpu_torch import build
+names = ("solve_sci", "diagonalize_fermionic_hamiltonian", "rotate_integrals", "qubit",
+         "BitArray", "recover_configurations", "subsample", "counts_to_arrays")
+print(all(hasattr(sqd_tpu_torch, n) for n in names),
+      sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sqd_tpu")),
+      build.build_seconds, torch.cuda.is_initialized())
+"""
+
+
+def test_package_import_reexports_without_jax_build_or_device():
+    """``import sqd_tpu_torch`` alone gives the re-exported API, and imports no
+    JAX, builds or loads no native library and initialises no device."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_PACKAGE], cwd=ROOT, env=_clean_env(),
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert proc.stdout.strip() == "True [] {} False"
 
 
 def test_cuda_request_raises_without_a_gpu(monkeypatch):

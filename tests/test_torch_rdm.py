@@ -72,10 +72,62 @@ def test_rdms_match_dense_oracle(state):
     np.testing.assert_allclose(out["dm2"].numpy(), dm2, atol=TOL)
 
 
-def test_desdes_tables_match(state):
-    pa, _, _, _, _ = state
-    inter_j, src_j, sign_j = jax_linktab.build_desdes_tables(pa, NORB, NELEC[0])
-    inter, src, sign = linktab.build_desdes_tables(pa, NORB, NELEC[0], device="cpu")
+def _random_strings(norb, nelec, count, seed):
+    """``count`` sorted unique packed strings of ``nelec`` set bits in ``norb``."""
+    rng = np.random.default_rng(seed)
+    rows = {tuple(sorted(rng.choice(norb, nelec, replace=False))) for _ in range(4 * count)}
+    ints = sorted(sum(1 << int(b) for b in row) for row in rows)[:count]
+    return bitpack.pack_ints(np.array(ints, dtype=object if norb > 62 else np.int64), norb)
+
+
+# (norb, nelec_spin, strings, pair-batch budget in bytes or None for the default)
+DESDES_CASES = {
+    "fixture": (NORB, 3, None, None),
+    "one_word": (8, 4, 20, None),
+    "two_words": (40, 5, 12, None),
+    # 64 pairs in batches of 5: twelve full batches and one ragged
+    "ragged_batches": (8, 4, 20, 5),
+    "two_words_single_pair_batches": (40, 3, 6, 1),
+    "one_electron": (8, 1, 5, None),
+    "empty_set": (8, 3, 0, None),
+}
+
+
+@pytest.mark.parametrize("case", list(DESDES_CASES))
+def test_desdes_tables_match(state, case, monkeypatch):
+    norb, nelec_spin, count, pairs_per_batch = DESDES_CASES[case]
+    if count is None:
+        strs = state[0]
+    elif count == 0:
+        strs = np.zeros((0, bitpack.num_words(norb)), dtype=np.uint32)
+    else:
+        strs = _random_strings(norb, nelec_spin, count, seed=23)
+    inter_j, src_j, sign_j = jax_linktab.build_desdes_tables(strs, norb, nelec_spin)
+    if pairs_per_batch is not None:
+        w = strs.shape[1]
+        monkeypatch.setattr(
+            linktab, "DESDES_BATCH_BYTES", pairs_per_batch * len(inter_j) * (5 + 2 * w) * 8
+        )
+    inter, src, sign = linktab.build_desdes_tables(strs, norb, nelec_spin, device="cpu")
+    assert src.dtype == torch.int64 and sign.dtype == torch.int8
+    assert src.shape == sign.shape == (norb * norb, len(inter_j))
     np.testing.assert_array_equal(inter, inter_j)
-    np.testing.assert_array_equal(src.numpy(), np.asarray(src_j))
-    np.testing.assert_array_equal(sign.numpy(), np.asarray(sign_j))
+    sign_j = np.asarray(sign_j)
+    np.testing.assert_array_equal(sign.numpy(), sign_j)
+    np.testing.assert_array_equal(src.numpy()[sign_j != 0], np.asarray(src_j)[sign_j != 0])
+    # absent entries point at slot 0 and diagonal pairs are all zero
+    assert not src.numpy()[sign_j == 0].any()
+    assert not sign.numpy()[:: norb + 1].any()
+    if case in ("one_word", "two_words", "ragged_batches"):
+        assert np.count_nonzero(sign_j) > 0
+
+
+def test_rdms_match_with_batched_two_hole_tables(state, monkeypatch):
+    """The RDMs through two-hole tables built three pairs at a time."""
+    pa, pb, c, _, _ = state
+    basis = build_sci_basis(pa, pb, NORB, NELEC, device="cpu")
+    ref = rdm.make_rdms(basis, torch.as_tensor(c), pa, pb, spin_resolved=True)
+    monkeypatch.setattr(linktab, "DESDES_BATCH_BYTES", 3 * 20 * 7 * 8)
+    out = rdm.make_rdms(basis, torch.as_tensor(c), pa, pb, spin_resolved=True)
+    for key in ref:
+        assert torch.equal(out[key], ref[key])

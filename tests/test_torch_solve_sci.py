@@ -107,7 +107,8 @@ def test_headline_fcidump_matches_chem():
 def test_unported_paths_raise():
     strs = np.array([0b111, 0b1011])
     h1, eri = hubbard_integrals(4, u=1.0)
-    with pytest.raises(NotImplementedError, match="dense_df"):
+    # ported: at 16 pairs "auto" attaches no factor, and the strategy says so
+    with pytest.raises(ValueError, match="dense_df.*requires a PSD ERI factor"):
         fermion.solve_sci((strs, strs), h1, eri, 4, (3, 3), device="cpu",
                           matvec_strategy="dense_df")
     rows = np.ones((4, 8), dtype=bool)
@@ -116,6 +117,7 @@ def test_unported_paths_raise():
             h1, eri, BitArray.from_bool_array(rows), 2, 4, (3, 3), checkpoint_path="loop.npz",
             device="cpu")
     for unported in (fermion.solve_sci_excited, fermion.optimize_orbitals,
+                     fermion.rotate_integrals, fermion.apply_excitations,
                      fermion.enlarge_batch_from_transitions, fermion.SCIState.load):
         with pytest.raises(NotImplementedError, match="not ported"):
             unported("anything")

@@ -105,7 +105,35 @@ Phases, each printing one line; any failure exits non-zero:
    on the card, from the tables alone), the two within 1e-3 Ha, both
    Davidsons converged; and both routes on the first 512 strings per spin
    within 1e-7 Ha of the NumPy :func:`host_f64_energy`, which the device
-   quotient must also meet there.
+   quotient must also meet there;
+11. the rest of the fermion API — (a) BASELINE config 4's path: the headline
+   integrals scrambled by ``rotate_integrals`` with :func:`oo_inputs`'s
+   random generator (0.1 · normal(120), seed 17), then ``optimize_orbitals``
+   from k = 0 over 181 × 181 excitation strings (32,761 determinants, the
+   size of the reference's orbital-optimization notebook) with ``OO`` (3
+   outer iterations of the default 10 — a cut for the script's time — of
+   10,000 SGD steps, rate 0.01,
+   momentum 0.9) and f32 solves (the default at this size is f64, which
+   never reaches the kernel): each outer iteration's energy within 1e-6 Ha
+   of ``sqd_tpu``'s record (``tools/make_oo_data.py``), the final ``k_flat``
+   within ``TOL_OO_K``, the last energy below the k = 0 start, the kernel
+   launched in every solve; then 100 SGD steps on the last solve's RDMs by
+   the CUDA graph and eagerly on the card against the port's CPU steps
+   within 1e-10, each form's ms per step printed; (b) ``solve_sci_excited``
+   (k = 3, f64) at the headline's 10⁶ determinants: the lowest energy within
+   1e-7 Ha of phase 5's, each within 1e-7 Ha of :func:`host_f64_energy` of
+   its own vector and of ``tools/make_excited_data.py``'s record, the states
+   orthonormal to 1e-8 and ascending; (c) ``enlarge_batch_from_transitions``
+   of phase 6's 200,000 shots by all 480 same-spin single excitations
+   (:func:`single_excitation_operators`): the legal-row count equal to the
+   count from occupancies, the first 2,000 shots' rows equal to the NumPy
+   loop :func:`excitation_rows_loop`; (d) phase 6's loop stopped after
+   iteration 0 with a ``checkpoint_path`` and resumed to 3 iterations: the
+   best energy within 1e-9 Ha of phase 6's, with its strings; its state
+   through ``SCIState.save``/``load`` with equal amplitudes, strings and
+   1-RDM; and one headline ``solve_sci`` under ``profile_trace``, whose
+   Chrome trace must hold the kernel (its device time printed beside phase
+   3's CUDA-event time).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -120,6 +148,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
 TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
@@ -163,6 +192,17 @@ TOL_ROUTES = 1e-3  # Ha between the two routes' energies (both stop at tol 1e-4)
 # the dense f32 matvec relative to max(|f64|, 1): three f32 products in a row,
 # each entry a sum over X * P = 108 * 3200 terms
 TOL_DENSE = 1e-4
+# phase 11: the rest of the fermion API.  (a) orbital optimization (BASELINE
+# config 4's path) on the headline integrals in a randomly rotated basis over
+# 181 x 181 excitation strings (32,761 determinants, as the reference's
+# orbital-optimization notebook),
+# against the sqd_tpu record of tools/make_oo_data.py; (b) the three lowest
+# states at the headline strings, against tools/make_excited_data.py's record
+OO_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "oo_n2_631g.json")
+OO = {"strings": 181, "rotation_seed": 17, "rotation_scale": 0.1,
+      "num_iters": 3, "num_steps_grad": 10_000, "learning_rate": 0.01, "momentum": 0.9}
+EXCITED_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "excited_n2_631g.json")
+EXCITED_K = 3
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -234,6 +274,17 @@ def ccpvdz_shots(n_shots=CCPVDZ_SHOTS, seed=6):
     excitation strings per spin of 28 orbitals and 7 electrons."""
     return _shots(excitation_strings(1500, 28, 7, 3), excitation_strings(1500, 28, 7, 4),
                   28, n_shots, seed)
+
+
+def oo_inputs():
+    """Phase 11 (a)'s inputs: the random rotation ``k_rand`` (120 values,
+    ``0.1 * normal`` from seed 17) that scrambles the headline orbitals, and
+    the 181 + 181 excitation strings (seeds 1 and 2, as the headline's)."""
+    import numpy as np
+
+    k_rand = OO["rotation_scale"] * np.random.default_rng(OO["rotation_seed"]).normal(size=120)
+    return k_rand, (excitation_strings(OO["strings"], 16, 5, 1),
+                    excitation_strings(OO["strings"], 16, 5, 2))
 
 
 def strings_digest(strs) -> str:
@@ -663,8 +714,9 @@ def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solv
     return probe, best, t_loop, launches, checks
 
 
-def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
-    """Phase 6: the SQD loop at full width.  Returns the kernel's launches in it."""
+def sqd_loop_phase(dev, smi, h1, eri, ecore):
+    """Phase 6: the SQD loop at full width.  Returns the kernel's launches in
+    it and its best result."""
     import numpy as np
 
     from sqd_tpu_torch.ops import bitpack
@@ -702,7 +754,7 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore) -> int:
     for what, ok in checks.items():
         if not ok:
             fail(f"sqd loop: {what}")
-    return launches
+    return launches, best
 
 
 def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float]:
@@ -1313,6 +1365,352 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float]:
     return results["gather"][1], timing, err
 
 
+TOL_OO_ENERGY = 1e-6  # Ha, each outer iteration's solve against sqd_tpu's record
+# final k_flat, max-abs: 100 x the solves' residual tolerance (1e-6).  The
+# RDMs are first order in the residual, and each outer iteration's SGD moves
+# the minimiser of the RDM-contracted energy by their error over the
+# curvature; the port's CPU run with the same f32-then-f64 solves lands
+# 1.6e-6 from the record
+TOL_OO_K = 1e-4
+TOL_SGD = 1e-10  # 100 SGD steps: the card's form against the port's CPU step
+SGD_CHECK_STEPS = 100
+AUGMENT_CHECK_SHOTS = 2000
+
+
+def single_excitation_operators(norb):
+    """Every same-spin single excitation of ``2 * norb`` modes as transition
+    strings: ``'+'`` at q, ``'-'`` at p, p != q within each half of the row
+    (``2 norb (norb - 1)`` operators)."""
+    import numpy as np
+
+    ops = []
+    for base in (0, norb):
+        for p in range(norb):
+            for q in range(norb):
+                if p != q:
+                    row = np.full(2 * norb, "I")
+                    row[base + q], row[base + p] = "+", "-"
+                    ops.append(row)
+    return np.array(ops)
+
+
+def excitation_rows_loop(shots, ops):
+    """``enlarge_batch_from_transitions`` written as a loop over operators and
+    modes in NumPy: '+' needs an empty mode and fills it, '-' needs a filled
+    one and empties it, 'n' needs a filled one; rows operator-major."""
+    import numpy as np
+
+    out = []
+    for op in ops:
+        new, ok = shots.copy(), np.ones(len(shots), dtype=bool)
+        for j, ch in enumerate(op):
+            if ch == "+":
+                ok &= ~shots[:, j]
+                new[:, j] = True
+            elif ch == "-":
+                ok &= shots[:, j]
+                new[:, j] = False
+            elif ch == "n":
+                ok &= shots[:, j]
+        out.append(new[ok])
+    return np.concatenate(out)
+
+
+def oo_phase(dev, smi, h1, eri, ecore) -> int:
+    """Phase 11 (a): orbital optimization (BASELINE config 4's path) through
+    ``optimize_orbitals`` with f32 solves.  Returns the kernel's launches."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.ops import cross_spin
+
+    with open(OO_DATA) as f:
+        recorded = json.load(f)
+    k_rand, strings = oo_inputs()
+    h_rand, eri_rand = fermion.rotate_integrals(h1, eri, k_rand, device=dev)
+    h_cpu, eri_cpu = fermion.rotate_integrals(h1, eri, k_rand, device="cpu")
+    rot_err = max(float(np.abs(h_rand - h_cpu).max()), float(np.abs(eri_rand - eri_cpu).max()))
+    iterations = []  # per outer iteration: solve seconds, result, SGD seconds
+
+    def timed_solve(fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            iterations.append({"solve_s": time.perf_counter() - t0, "result": out})
+            return out
+        return wrapper
+
+    def timed_sgd(fn):
+        def wrapper(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            iterations[-1]["sgd_s"] = time.perf_counter() - t0
+            return out
+        return wrapper
+
+    with Probe() as probe:
+        probe.wrap(fermion, "solve_sci", timed_solve)
+        probe.wrap(fermion, "_sgd_momentum_orbital_step", timed_sgd)
+        cross_spin.cross_spin_matvec.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        energy, k_final, _ = fermion.optimize_orbitals(
+            strings, h_rand, eri_rand, np.zeros(120), num_iters=OO["num_iters"],
+            num_steps_grad=OO["num_steps_grad"], learning_rate=OO["learning_rate"],
+            momentum=OO["momentum"], device=dev, solver_dtype=torch.float32)
+        sync()
+        t_oo = time.perf_counter() - t0
+        launches = cross_spin.cross_spin_matvec.launches
+    steps = OO["num_steps_grad"]
+    for i, (it, solve, e_ref) in enumerate(zip(iterations, probe.solves,
+                                               recorded["iteration_energies"])):
+        print(f"oo iteration {i}: solve {it['solve_s']:.3f} s ({solve['launches']} kernel "
+              f"launches), SGD {it['sgd_s']:.3f} s = {it['sgd_s'] / steps * 1e3:.4f} ms per step "
+              f"({steps} steps, CUDA graph); energy {it['result'].energy + ecore:.10f} Ha, "
+              f"|E - sqd_tpu| {abs(it['result'].energy - e_ref):.3e} ({smi})", flush=True)
+    energies = [it["result"].energy for it in iterations]
+    k_err = float(np.abs(k_final - np.array(recorded["k_flat"])).max())
+    print(f"optimize_orbitals: {len(iterations)} outer iterations in {t_oo:.3f} s ({smi}); "
+          f"{np.prod([len(s) for s in strings])} determinants; energy {energy + ecore:.10f} Ha "
+          f"from {energies[0] + ecore:.10f} at k = 0 (unrotated basis "
+          f"{recorded['unrotated_energy'] + ecore:.10f}); |k - sqd_tpu| {k_err:.3e} (gate "
+          f"{TOL_OO_K:.0e}); rotate_integrals card vs CPU {rot_err:.3e}; {launches} kernel "
+          f"launches", flush=True)
+
+    # the SGD forms on the last solve's fixed RDMs: graph and eager on the
+    # card, eager on the CPU
+    last = iterations[-1]["result"]
+    rdm2_phys = np.transpose(last.rdm2, (0, 2, 3, 1))
+    eri_phys = np.transpose(eri_rand, (0, 2, 3, 1))
+    k_start = np.array(recorded["k_flat"])
+
+    def tensors(device):
+        return [torch.tensor(np.asarray(x), dtype=torch.float64, device=device)
+                for x in (last.rdm1, rdm2_phys, h_rand, eri_phys, k_start)]
+
+    rates = (OO["learning_rate"], OO["momentum"])
+    squarings = fermion.EXPM_SQUARINGS
+    on_card, on_cpu = tensors(dev), tensors("cpu")
+    timings = {}
+    for label, run, n_steps in (("graph", fermion._sgd_graph, 10 * SGD_CHECK_STEPS),
+                                ("eager", fermion._sgd_eager, 2 * SGD_CHECK_STEPS)):
+        run(*on_card, *rates, 1, squarings)  # warm
+        sync()
+        t0 = time.perf_counter()
+        run(*on_card, *rates, n_steps, squarings)
+        sync()
+        timings[label] = (time.perf_counter() - t0) / n_steps * 1e3
+    graph_k = fermion._sgd_momentum_orbital_step(*on_card, *rates, SGD_CHECK_STEPS).cpu()
+    eager_k, _ = fermion._sgd_eager(*on_card, *rates, SGD_CHECK_STEPS, squarings)
+    t0 = time.perf_counter()
+    cpu_k = fermion._sgd_momentum_orbital_step(*on_cpu, *rates, SGD_CHECK_STEPS)
+    t_cpu = (time.perf_counter() - t0) / SGD_CHECK_STEPS * 1e3
+    graph_err = float((graph_k - cpu_k).abs().max())
+    eager_err = float((eager_k.cpu() - cpu_k).abs().max())
+    moved = float((cpu_k - on_cpu[4]).abs().max())
+    print(f"SGD step on fixed RDMs ({smi}): CUDA graph {timings['graph']:.4f} ms, eager on the "
+          f"card {timings['eager']:.4f} ms, eager on the host CPU {t_cpu:.4f} ms per step; "
+          f"{SGD_CHECK_STEPS} steps (k moved {moved:.3e}): |graph - CPU| {graph_err:.3e}, "
+          f"|eager - CPU| {eager_err:.3e} (gate {TOL_SGD:.0e})", flush=True)
+    checks = {
+        "each outer iteration's energy within 1e-6 Ha of sqd_tpu's": len(energies)
+        == len(recorded["iteration_energies"]) == OO["num_iters"] and all(
+            abs(a - b) < TOL_OO_ENERGY for a, b in zip(energies, recorded["iteration_energies"])),
+        "the final k_flat near sqd_tpu's": k_err < TOL_OO_K,
+        "the last energy below the k = 0 start": energy < energies[0] and energy == energies[-1],
+        "the kernel launched in every solve": len(probe.solves) == OO["num_iters"]
+        and all(s["launches"] >= 1 for s in probe.solves),
+        "rotate_integrals on the card equals the CPU's": rot_err < 1e-12,
+        "the card's SGD steps equal the CPU's": graph_err < TOL_SGD and eager_err < TOL_SGD
+        and moved > 1e-6,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"orbital optimization: {what}")
+    return launches
+
+
+def excited_phase(dev, smi, h1, eri, ecore, strs_a, strs_b, e_ground) -> None:
+    """Phase 11 (b): the three lowest states at the headline strings."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.ops import bitpack
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+
+    with open(EXCITED_DATA) as f:
+        recorded = json.load(f)
+    runs = []
+
+    def recorded_k(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            runs.append(out)
+            return out
+        return wrapper
+
+    with Probe() as probe:
+        probe.wrap(fermion, "davidson_lowest_k", recorded_k)
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        results = fermion.solve_sci_excited((strs_a, strs_b), h1, eri, 16, (5, 5),
+                                            k=EXCITED_K, device=dev)
+        sync()
+        t_exc = time.perf_counter() - t0
+    pad_to = tuple(-(-len(s) // 32) * 32 for s in (strs_a, strs_b))  # the solve's padding
+    ham64 = build_sci_hamiltonian(bitpack.pack_ints(strs_a, 16), bitpack.pack_ints(strs_b, 16),
+                                  h1, eri, 16, (5, 5), device=dev, pad_to=pad_to)
+    energies = [r.energy for r in results]
+    padded = []
+    for r in results:
+        vec = np.zeros(ham64.shape)
+        vec[:len(strs_a), :len(strs_b)] = r.sci_state.amplitudes
+        padded.append(vec)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EXCITED_K) as pool:  # NumPy's products release the GIL
+        host = list(pool.map(lambda vec: host_f64_energy(ham64, vec), padded))
+    t_host = time.perf_counter() - t0
+    vecs = np.stack([r.sci_state.amplitudes.ravel() for r in results])
+    ortho = float(np.abs(vecs @ vecs.T - np.eye(EXCITED_K)).max())
+    vs_host = max(abs(a - b) for a, b in zip(energies, host))
+    vs_ref = max(abs(a - b) for a, b in zip(energies, recorded["energies"]))
+    print(f"solve_sci_excited (k = {EXCITED_K}, 10^6 determinants, f64 block Davidson): "
+          f"{t_exc:.3f} s, {runs[0].iterations} iterations, converged {runs[0].converged}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi}); energies "
+          f"{[round(e + ecore, 10) for e in energies]} Ha; |E0 - solve_sci| "
+          f"{abs(energies[0] - e_ground):.3e}, max |E - host f64| {vs_host:.3e}, max |E - sqd_tpu| "
+          f"{vs_ref:.3e}, max |V V^T - I| {ortho:.3e} (host quotients {t_host:.1f} s)", flush=True)
+    checks = {
+        "the lowest energy within 1e-7 Ha of solve_sci's": abs(energies[0] - e_ground) < TOL_ENERGY,
+        "each energy within 1e-7 Ha of its host f64 quotient": vs_host < TOL_ENERGY,
+        "each energy within 1e-7 Ha of sqd_tpu's": len(energies) == len(recorded["energies"])
+        and vs_ref < TOL_ENERGY,
+        "the states orthonormal to 1e-8": ortho < 1e-8,
+        "the energies ascending": energies == sorted(energies),
+        "the block Davidson converged": len(runs) == 1 and runs[0].converged,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"excited states: {what}")
+
+
+def augmentation_phase(dev, smi) -> None:
+    """Phase 11 (c): every same-spin single excitation of phase 6's shots."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import fermion
+
+    shots = loop_shots()
+    norb = shots.shape[1] // 2
+    ops = single_excitation_operators(norb)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    rows = fermion.enlarge_batch_from_transitions(shots, ops, device=dev)
+    sync()
+    t_aug = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_b, n_a = shots[:, :norb].sum(1), shots[:, norb:].sum(1)
+    expected = int((n_b * (norb - n_b) + n_a * (norb - n_a)).sum())
+    # the rows of the first shots, cut from each operator's block by the
+    # legality that occupancies alone give, against the NumPy loop
+    p_col = np.array([np.flatnonzero(op == "-")[0] for op in ops])
+    q_col = np.array([np.flatnonzero(op == "+")[0] for op in ops])
+    legal = (shots[:, p_col] & ~shots[:, q_col]).T  # (ops, shots)
+    starts = np.concatenate([[0], np.cumsum(legal.sum(1))[:-1]])
+    head = legal[:, :AUGMENT_CHECK_SHOTS].sum(1)
+    picked = np.concatenate([rows[s:s + h] for s, h in zip(starts, head)])
+    ref = excitation_rows_loop(shots[:AUGMENT_CHECK_SHOTS], ops)
+    same = picked.shape == ref.shape and bool((picked == ref).all())
+    print(f"enlarge_batch_from_transitions: {len(ops)} operators x {len(shots)} shots x "
+          f"{shots.shape[1]} bits ({len(ops) * shots.size / 1e9:.2f} GB of bool rows) in "
+          f"{t_aug:.3f} s, peak device memory {peak / 1e9:.2f} GB ({smi}); {len(rows)} legal rows "
+          f"({expected} from occupancies); the first {AUGMENT_CHECK_SHOTS} shots' {len(ref)} rows "
+          f"equal to the NumPy loop: {same}", flush=True)
+    if not (rows.dtype == np.bool_ and rows.shape == (expected, shots.shape[1]) and same):
+        fail("excitation augmentation disagrees with the occupancy count or the NumPy loop")
+
+
+def resume_phase(dev, smi, h1, eri, ecore, uninterrupted, strs_a, strs_b, kernel_ms) -> int:
+    """Phase 11 (d): phase 6's loop stopped after iteration 0 and resumed
+    from its checkpoint, a state file round trip, and a traced solve.
+    Returns the kernel's launches in the two loop runs."""
+    import tempfile
+
+    import numpy as np
+
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.ops import cross_spin
+    from sqd_tpu_torch.primitives import BitArray
+    from sqd_tpu_torch.utils.tracing import profile_trace
+
+    shots = BitArray.from_bool_array(loop_shots())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop.npz")
+        cross_spin.cross_spin_matvec.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        fermion.diagonalize_fermionic_hamiltonian(
+            h1, eri, shots, norb=16, nelec=(5, 5), device=dev, checkpoint_path=path,
+            **{**LOOP_SETTINGS, "max_iterations": 1})
+        sync()
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = fermion.diagonalize_fermionic_hamiltonian(
+            h1, eri, shots, norb=16, nelec=(5, 5), device=dev, checkpoint_path=path,
+            resume=True, **LOOP_SETTINGS)
+        sync()
+        t_resumed = time.perf_counter() - t0
+        launches = cross_spin.cross_spin_matvec.launches
+        state_path = os.path.join(tmp, "state.npz")
+        resumed.sci_state.save(state_path)
+        loaded = fermion.SCIState.load(state_path, device=dev)
+        rdm_err = float(np.abs(loaded.rdm(rank=1) - resumed.sci_state.rdm(rank=1)).max())
+        trace_dir = os.path.join(tmp, "trace")
+        with profile_trace(trace_dir):
+            fermion.solve_sci((strs_a, strs_b), h1, eri, 16, (5, 5), device=dev)
+            sync()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "cross_spin_kernel" in e.get("name", "")]
+    traced_ms = sum(e["dur"] for e in kernels) / max(len(kernels), 1) / 1e3
+    same_strings = (list(resumed.sci_state.ci_strs_a) == list(uninterrupted.sci_state.ci_strs_a)
+                    and list(resumed.sci_state.ci_strs_b)
+                    == list(uninterrupted.sci_state.ci_strs_b))
+    print(f"resumed loop ({smi}): iteration 0 with a checkpoint {t_first:.3f} s, resumed to "
+          f"{LOOP_SETTINGS['max_iterations']} iterations {t_resumed:.3f} s, {launches} kernel "
+          f"launches; best energy {resumed.energy + ecore:.12f} Ha, |E - uninterrupted| "
+          f"{abs(resumed.energy - uninterrupted.energy):.3e}, same strings {same_strings}; "
+          f"SCIState save/load: 1-RDM max|diff| {rdm_err:.3e}", flush=True)
+    print(f"profile_trace of one headline solve_sci: {len(kernels)} cross_spin_kernel launches "
+          f"in the Chrome trace, {traced_ms:.4f} ms each on the card (trace), against "
+          f"{kernel_ms:.4f} ms from CUDA events in phase 3 ({smi})", flush=True)
+    checks = {
+        "the resumed best energy within 1e-9 Ha of the uninterrupted run's":
+            abs(resumed.energy - uninterrupted.energy) < 1e-9,
+        "the resumed best has the uninterrupted run's strings": same_strings,
+        "the loaded state equals the saved one": bool(
+            np.array_equal(loaded.amplitudes, resumed.sci_state.amplitudes)
+            and list(loaded.ci_strs_a) == list(resumed.sci_state.ci_strs_a)
+            and list(loaded.ci_strs_b) == list(resumed.sci_state.ci_strs_b)) and rdm_err < 1e-12,
+        "the trace holds the cross-spin kernel": len(kernels) > 0,
+        "the kernel launched in the loop's solves": launches > 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"checkpoint and tracing: {what}")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1507,7 +1905,7 @@ def main() -> None:
     del ham32, ham64
 
     # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
-    loop_launches = sqd_loop_phase(dev, smi, h1, eri, ecore)
+    loop_launches, loop_best = sqd_loop_phase(dev, smi, h1, eri, ecore)
     casci_launches, casci, casci_err = casci_phase(dev, smi, h1, eri, ecore, rng)
     ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
@@ -1524,6 +1922,22 @@ def main() -> None:
     config5_launches, config5, config5_err = dense_df_phase(dev, smi, rng)
     print(f"config 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 11. the rest of the fermion API: orbital optimization, excited
+    # states, excitation augmentation, a resumed loop and a traced solve
+    t11 = [time.perf_counter()]
+    oo_launches = oo_phase(dev, smi, h1, eri, ecore)
+    t11.append(time.perf_counter())
+    excited_phase(dev, smi, h1, eri, ecore, strs_a, strs_b, result.energy)
+    t11.append(time.perf_counter())
+    augmentation_phase(dev, smi)
+    t11.append(time.perf_counter())
+    resume_launches = resume_phase(dev, smi, h1, eri, ecore, loop_best, strs_a, strs_b,
+                                   headline["ms"])
+    t11.append(time.perf_counter())
+    parts = ", ".join(f"({part}) {b - a:.1f} s" for part, a, b in zip("abcd", t11, t11[1:]))
+    print(f"fermion API: {t11[-1] - t11[0]:.1f} s: {parts}; the script so far "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
@@ -1534,6 +1948,8 @@ def main() -> None:
         "launches_casci": casci_launches,
         "launches_ccpvdz_loop": ccpvdz_launches,
         "launches_config5_gather": config5_launches,
+        "launches_orbital_optimization": oo_launches,
+        "launches_resumed_loop": resume_launches,
         "max_abs_err": max(*errs.values(), casci_err, config5_err),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],

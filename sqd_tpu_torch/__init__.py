@@ -5,8 +5,12 @@ The JAX package ``sqd_tpu`` stays the reference; this package holds the
 ported slices, module for module under the same names:
 
 * :mod:`sqd_tpu_torch.fermion` — the SQD loop
-  ``diagonalize_fermionic_hamiltonian``, ``solve_sci``, ``solve_sci_batch``
-  and ``solve_fermion``.
+  ``diagonalize_fermionic_hamiltonian`` (resumable from a checkpoint file),
+  ``solve_sci``, ``solve_sci_batch``, ``solve_fermion``, the k lowest states
+  ``solve_sci_excited``, orbital optimization (``rotate_integrals``,
+  ``optimize_orbitals``: SGD steps replayed as a CUDA graph on the card),
+  excitation augmentation (``apply_excitations``,
+  ``enlarge_batch_from_transitions``) and ``SCIState.save``/``load``.
 * :mod:`sqd_tpu_torch.configuration_recovery` — the repair of sampled rows,
   as torch ops on the device.
 * :mod:`sqd_tpu_torch.subsampling` / :mod:`sqd_tpu_torch.ops.sampling` —
@@ -17,6 +21,11 @@ ported slices, module for module under the same names:
   (k = 1 or k > 1, complex operators in complex128) over
   :mod:`sqd_tpu_torch.ops.pauli_proj`'s grouped operator;
   :mod:`sqd_tpu_torch.models.heisenberg` — Heisenberg and Ising models.
+* :mod:`sqd_tpu_torch.models.hubbard` / :mod:`sqd_tpu_torch.models.fcidump`
+  — Hubbard integrals; FCIDUMP files read and written.
+* :mod:`sqd_tpu_torch.utils.checkpoint` — the loop's checkpoint files;
+  :mod:`sqd_tpu_torch.utils.tracing` — ``IterationLogger`` and
+  ``profile_trace`` (``torch.profiler``, a Chrome trace).
 * :mod:`sqd_tpu_torch.counts` / :mod:`sqd_tpu_torch.primitives` — sample
   ingestion (``BitArray``) and Pauli sums (``Pauli``, ``SparsePauliOp``).
 * :mod:`sqd_tpu_torch.ops.hamiltonian` — the projected operator and its
@@ -40,10 +49,15 @@ ported slices, module for module under the same names:
 The CPU tests (``python -m pytest tests/test_torch_*.py``) hold each module
 against ``sqd_tpu``; ``python3 chip_smoke.py`` checks the port on the card,
 its phase 9 the qubit path (``tools/make_qubit_data.py`` writes its
-``sqd_tpu`` record).
+``sqd_tpu`` record) and its phase 11 orbital optimization, excited states,
+augmentation and a resumed loop (``tools/make_oo_data.py`` and
+``tools/make_excited_data.py``).
 
-The package re-exports the names ``sqd_tpu`` re-exports; those not ported
-yet raise ``NotImplementedError`` when called.  Nothing here imports JAX or
+The package re-exports the names ``sqd_tpu`` re-exports.  Three functions
+still raise ``NotImplementedError``: ``ops.linktab.build_gather_tables`` and
+``ops.hamiltonian.build_samespin_tables`` (the device table builds, not
+ported yet) and ``ops.davidson.davidson_ground_state_segmented`` (a TPU
+workaround, left out by design).  Nothing here imports JAX or
 ``sqd_tpu``, and importing builds no native code and touches no device.  Every
 public entry point runs on the card (``device="cuda"``) unless the caller
 passes another device.

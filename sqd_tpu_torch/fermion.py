@@ -13,16 +13,22 @@ strings, solve the batches through the ``sci_solver`` seam, keep the best,
 test convergence, carry strings over.  Public results keep ``sqd_tpu``'s
 layout: numpy amplitudes ``(M, N)``, numpy RDMs and occupancies.
 
+The rest of ``sqd_tpu.fermion`` is here too: :func:`solve_sci_excited` (the
+k lowest states by the block Davidson), :func:`rotate_integrals` and
+:func:`optimize_orbitals` (SGD with momentum on the RDM-contracted rotated
+energy, its gradient by ``torch.autograd``; on the card each step is one
+replayed CUDA graph), :func:`apply_excitations` and
+:func:`enlarge_batch_from_transitions` (broadcast bool tensor ops),
+``SCIState.save``/``load`` and the loop's ``checkpoint_path``/``resume``
+(files in ``sqd_tpu``'s layouts, readable by either package).
+
 Every entry point runs on the card (``device="cuda"``) unless the caller
-passes another device; a CUDA request without a card raises.  Not ported yet
-(ROADMAP.md), and raising ``NotImplementedError``: the loop's
-``checkpoint_path``, ``SCIState.save``/``load``, :func:`solve_sci_excited`,
-:func:`optimize_orbitals`, :func:`rotate_integrals`,
-:func:`apply_excitations` and :func:`enlarge_batch_from_transitions`.
+passes another device; a CUDA request without a card raises.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable, cast
 
@@ -34,7 +40,12 @@ from .configuration_recovery import recover_configurations
 from .counts import bit_array_to_arrays, bitstring_matrix_to_integers
 from .ops import bitpack
 from .ops import rdm as rdm_ops
-from .ops.davidson import davidson_ground_state, davidson_initial_guess
+from .ops.davidson import (
+    davidson_ground_state,
+    davidson_initial_guess,
+    davidson_initial_guess_k,
+    davidson_lowest_k,
+)
 from .ops.dense_df import dense_df_matvec_flat, densify
 from .ops.hamiltonian import (
     SCIBasis,
@@ -45,6 +56,7 @@ from .ops.hamiltonian import (
 )
 from .ops.table_cache import TableCache
 from .subsampling import postselect_by_hamming_right_and_left, subsample
+from .utils.checkpoint import LoopCheckpoint, load_loop_state, save_loop_state
 from .utils.device import checked_device
 
 __all__ = [
@@ -98,11 +110,33 @@ class SCIState:
         object.__setattr__(self, "device", checked_device(self.device))
 
     def save(self, filename):
-        raise NotImplementedError("SCIState.save is not ported yet; see ROADMAP.md")
+        """Save the state to an ``.npz`` file in ``sqd_tpu``'s layout.
+
+        Below 63 orbitals the CI strings are int64 arrays ``ci_strs_a`` /
+        ``ci_strs_b``; from 63 up (object-int strings) they are stored as
+        packed uint32 words under ``ci_strs_*_packed``.
+        """
+        if np.asarray(self.ci_strs_a).dtype == object or np.asarray(self.ci_strs_b).dtype == object:
+            pa, pb = self._packed()
+            np.savez(filename, amplitudes=self.amplitudes, ci_strs_a_packed=pa,
+                     ci_strs_b_packed=pb, norb=self.norb, nelec=self.nelec)
+        else:
+            np.savez(filename, amplitudes=self.amplitudes, ci_strs_a=self.ci_strs_a,
+                     ci_strs_b=self.ci_strs_b, norb=self.norb, nelec=self.nelec)
 
     @classmethod
-    def load(cls, filename):
-        raise NotImplementedError("SCIState.load is not ported yet; see ROADMAP.md")
+    def load(cls, filename, *, device="cuda"):
+        """Load a state saved by either package (either layout); ``device`` is
+        where the loaded state's RDM and spin queries run."""
+        with np.load(filename) as data:
+            norb = int(data["norb"])
+            if "ci_strs_a_packed" in data:
+                strs_a = bitpack.unpack_to_ints(data["ci_strs_a_packed"], norb)
+                strs_b = bitpack.unpack_to_ints(data["ci_strs_b_packed"], norb)
+            else:
+                strs_a, strs_b = data["ci_strs_a"], data["ci_strs_b"]
+            return cls(data["amplitudes"], strs_a, strs_b, norb=norb,
+                       nelec=tuple(int(x) for x in data["nelec"]), device=device)
 
     def _packed(self) -> tuple[np.ndarray, np.ndarray]:
         norb = int(self.norb)
@@ -304,13 +338,9 @@ def solve_sci(
         eri_factor=eri_factor,
     )
     ham = ham64.astype(solver_dtype)
-    mp, np_ = ham.shape
     hd_flat = ham.hdiag.reshape(-1)
     v0 = davidson_initial_guess(hd_flat, solver_dtype)
-    # scale the residual tolerance to the spectrum and dtype
-    scale = float(torch.where(hd_flat.abs() > 1e20, 0.0, hd_flat).abs().max())
-    eps = torch.finfo(solver_dtype).eps
-    tol_eff = max(tol, 32 * eps * max(1.0, scale))
+    tol_eff = _scaled_tol(hd_flat, tol)
     if matvec_strategy == "dense_df":
         if spin_sq is not None:
             raise ValueError(
@@ -343,58 +373,98 @@ def solve_sci(
             tol=tol, max_subspace=max_subspace, max_iterations=refine_iterations,
         )
         vec_flat = result64.vector
-    vec_pad = vec_flat.reshape(mp, np_)
-    vec_pad = vec_pad / torch.linalg.norm(vec_pad)
+    return _result_of(ham64, vec_flat, (strs_a, strs_b), (pa, pb), nelec, with_rdms)
 
+
+def _scaled_tol(hd_flat: torch.Tensor, tol: float) -> float:
+    """The residual tolerance scaled to the spectrum and the solver's dtype."""
+    scale = float(torch.where(hd_flat.abs() > 1e20, 0.0, hd_flat).abs().max())
+    eps = torch.finfo(hd_flat.dtype).eps
+    return max(tol, 32 * eps * max(1.0, scale))
+
+
+def _result_of(ham64, vec_flat, strs, packed, nelec, with_rdms=True) -> SCIResult:
+    """The :class:`SCIResult` of a padded solver vector: normalised in f64,
+    its f64 RDMs and occupancies, and its bare-H energy."""
+    mp, np_ = ham64.shape
+    vec_pad = vec_flat.to(torch.float64).reshape(mp, np_)
+    vec_pad = vec_pad / torch.linalg.norm(vec_pad)
     # f64 RDMs -> occupancies.  Padded rows/columns are exactly zero, so the
     # padded gather tables give the same RDMs as an unpadded rebuild would.
     rdms = rdm_ops.make_rdms(
-        ham64, vec_pad, pa if with_rdms else None, pb if with_rdms else None,
+        ham64, vec_pad, packed[0] if with_rdms else None, packed[1] if with_rdms else None,
         with_dm2=with_rdms,
     )
     dm1a, dm1b = rdms["dm1a"].cpu().numpy(), rdms["dm1b"].cpu().numpy()
     dm2 = rdms["dm2"].cpu().numpy() if with_rdms else None
     occupancies = (np.diagonal(dm1a).copy(), np.diagonal(dm1b).copy())
     energy = expectation_value(ham64, vec_pad.reshape(-1), spin_penalty=False)
+    m, n = len(strs[0]), len(strs[1])
     sci_state = SCIState(
         amplitudes=vec_pad[:m, :n].cpu().numpy(),
-        ci_strs_a=strs_a,
-        ci_strs_b=strs_b,
-        norb=norb,
+        ci_strs_a=strs[0],
+        ci_strs_b=strs[1],
+        norb=ham64.norb,
         nelec=tuple(int(x) for x in nelec),
-        device=device,
+        device=vec_pad.device,
     )
     return SCIResult(
         energy, sci_state, orbital_occupancies=occupancies, rdm1=dm1a + dm1b, rdm2=dm2
     )
 
 
-def solve_sci_excited(*args, **kwargs):
-    """The k lowest eigenstates (``sqd_tpu.fermion.solve_sci_excited``): not ported yet."""
-    raise NotImplementedError("solve_sci_excited is not ported yet; see ROADMAP.md")
+def solve_sci_excited(
+    ci_strings: tuple[np.ndarray, np.ndarray],
+    one_body_tensor: np.ndarray,
+    two_body_tensor: np.ndarray,
+    norb: int,
+    nelec: tuple[int, int],
+    *,
+    k: int,
+    device="cuda",
+    spin_sq: float | None = None,
+    shift: float = 0.1,
+    solver_dtype=torch.float64,
+    tol: float = 1e-7,
+    max_subspace: int = 32,
+    max_cycle: int = 400,
+    pad_bucket: int = 32,
+) -> list[SCIResult]:
+    """The k lowest eigenstates of the projected Hamiltonian (block Davidson).
 
-
-def optimize_orbitals(*args, **kwargs):
-    """Orbital optimization (``sqd_tpu.fermion.optimize_orbitals``): not ported yet."""
-    raise NotImplementedError("optimize_orbitals is not ported yet; see ROADMAP.md")
-
-
-def rotate_integrals(*args, **kwargs):
-    """Orbital rotation of the integrals (``sqd_tpu.fermion.rotate_integrals``):
-    not ported yet."""
-    raise NotImplementedError("rotate_integrals is not ported yet; see ROADMAP.md")
-
-
-def apply_excitations(*args, **kwargs):
-    """Excitation operators on bitstring rows (``sqd_tpu.fermion.apply_excitations``):
-    not ported yet."""
-    raise NotImplementedError("apply_excitations is not ported yet; see ROADMAP.md")
-
-
-def enlarge_batch_from_transitions(*args, **kwargs):
-    """Excitation augmentation (``sqd_tpu.fermion.enlarge_batch_from_transitions``):
-    not ported yet."""
-    raise NotImplementedError("enlarge_batch_from_transitions is not ported yet; see ROADMAP.md")
+    ``sqd_tpu.fermion.solve_sci_excited`` plus ``device``: the start block of
+    :func:`~sqd_tpu_torch.ops.davidson.davidson_initial_guess_k`, then
+    :func:`~sqd_tpu_torch.ops.davidson.davidson_lowest_k` with
+    ``max_subspace`` raised to at least ``2k + 6``.  Returns ``k``
+    :class:`SCIResult`\\ s in ascending energy order, each with its own bare-H
+    f64 energy, occupancies and RDMs.
+    """
+    device = checked_device(device)
+    strs_a, strs_b = _check_ci_strs(ci_strings)
+    norb = int(one_body_tensor.shape[0])
+    pa = _strings_to_packed(strs_a, norb)
+    pb = _strings_to_packed(strs_b, norb)
+    m, n = len(strs_a), len(strs_b)
+    pad_to = None
+    if pad_bucket:
+        pad_to = (_round_up(m, pad_bucket), _round_up(n, pad_bucket))
+    ham64 = build_sci_hamiltonian(
+        pa, pb, one_body_tensor, two_body_tensor, norb, nelec,
+        device=device,
+        spin_shift=0.0 if spin_sq is None else float(shift),
+        spin_target=0.0 if spin_sq is None else float(spin_sq),
+        dtype=torch.float64,
+        pad_to=pad_to,
+    )
+    ham = ham64.astype(solver_dtype)
+    hd_flat = ham.hdiag.reshape(-1)
+    res = davidson_lowest_k(
+        sci_matvec_flat, ham, hd_flat, davidson_initial_guess_k(hd_flat, k, solver_dtype),
+        k=k, tol=_scaled_tol(hd_flat, tol), max_subspace=max(max_subspace, 2 * k + 6),
+        max_iterations=max_cycle,
+    )
+    return [_result_of(ham64, res.vectors[i], (strs_a, strs_b), (pa, pb), nelec)
+            for i in range(k)]
 
 
 # ---------------------------------------------------------------------------
@@ -567,8 +637,15 @@ def diagonalize_fermionic_hamiltonian(
         seed: NumPy seed or generator.
         solver_options: extra kwargs of the default solver (ignored if
             ``sci_solver`` is given).
-        checkpoint_path / resume: not ported yet; a ``checkpoint_path``
-            raises ``NotImplementedError``.
+        checkpoint_path: if given, the whole loop state (iteration counter,
+            NumPy generator state, occupancies, carryover strings, best
+            result) is saved there after every iteration
+            (:mod:`sqd_tpu_torch.utils.checkpoint`; ``sqd_tpu``'s layout).
+        resume: when ``checkpoint_path`` exists and ``resume`` is true, the
+            loop continues from the saved state: every random number of the
+            loop comes from the one NumPy generator (recovery seeds its
+            ``torch.Generator`` from it), so the continuation is the
+            uninterrupted run's.
         device: where configuration recovery and the default solver run.
 
     Returns:
@@ -600,8 +677,6 @@ def diagonalize_fermionic_hamiltonian(
             "the same for both spin alpha and spin beta. "
             f"Instead, got {max_dim_a} and {max_dim_b}"
         )
-    if checkpoint_path is not None:
-        raise NotImplementedError("checkpoint_path/resume is not ported yet; see ROADMAP.md")
     device = checked_device(device)
 
     if include_configurations is None:
@@ -631,10 +706,38 @@ def diagonalize_fermionic_hamiltonian(
     str_dtype = object if norb >= 63 else np.int64
     carryover_strings_a = np.array([], dtype=str_dtype)
     carryover_strings_b = np.array([], dtype=str_dtype)
+    start_iteration = 0
+
+    if checkpoint_path is not None and resume and os.path.exists(checkpoint_path):
+        ckpt = load_loop_state(checkpoint_path)
+        start_iteration = ckpt.iteration + 1
+        rng.bit_generator.state = ckpt.rng_state
+        current_occupancies = ckpt.current_occupancies
+        carryover_strings_a = ckpt.carryover_strings_a
+        carryover_strings_b = ckpt.carryover_strings_b
+        current_energy = ckpt.current_energy
+        blob = ckpt.best_state_blob
+        state = SCIState(
+            amplitudes=blob["amplitudes"],
+            ci_strs_a=bitpack.unpack_to_ints(blob["strs_a_packed"], norb),
+            ci_strs_b=bitpack.unpack_to_ints(blob["strs_b_packed"], norb),
+            norb=norb,
+            nelec=tuple(int(x) for x in nelec),
+            device=device,
+        )
+        # reattach the RDMs an uninterrupted run carries on its best result
+        # (orbital optimization reads them); a one-time cost at resume
+        best_result = SCIResult(
+            ckpt.best_energy,
+            state,
+            orbital_occupancies=ckpt.best_occupancies,
+            rdm1=state.rdm(rank=1, spin_summed=True),
+            rdm2=state.rdm(rank=2, spin_summed=True),
+        )
 
     raw_bitstrings, raw_probs = bit_array_to_arrays(bit_array)
 
-    for _ in range(max_iterations):
+    for iteration in range(start_iteration, max_iterations):
         if current_occupancies is None:
             bitstrings, probs = postselect_by_hamming_right_and_left(
                 raw_bitstrings, raw_probs, hamming_right=n_alpha, hamming_left=n_beta
@@ -727,4 +830,311 @@ def diagonalize_fermionic_hamiltonian(
             carryover_strings_a = carryover_strings_a[np.argsort(weights_a)[::-1]]
             carryover_strings_b = carryover_strings_b[np.argsort(weights_b)[::-1]]
 
+        if checkpoint_path is not None:
+            best_state = best_result.sci_state
+            pa, pb = best_state._packed()
+            save_loop_state(
+                checkpoint_path,
+                LoopCheckpoint(
+                    iteration=iteration,
+                    rng_state=rng.bit_generator.state,
+                    current_occupancies=current_occupancies,
+                    carryover_strings_a=carryover_strings_a,
+                    carryover_strings_b=carryover_strings_b,
+                    best_energy=best_result.energy,
+                    best_state_blob={"amplitudes": np.asarray(best_state.amplitudes),
+                                     "strs_a_packed": pa, "strs_b_packed": pb},
+                    best_occupancies=best_result.orbital_occupancies,
+                    current_energy=current_energy,
+                    norb=norb,
+                ),
+            )
+
     return cast(SCIResult, best_result)
+
+
+# ---------------------------------------------------------------------------
+# orbital optimization
+# ---------------------------------------------------------------------------
+
+EXPM_TAYLOR_DEGREE = 18  # truncation below 1/19! ~ 8e-18 once the scaled 1-norm is <= 1
+EXPM_SQUARINGS = 8  # squarings one SGD step holds: generators up to 1-norm 2**8
+
+
+def _check_k_flat(k_flat, norb: int) -> None:
+    num_params = (norb**2 - norb) // 2
+    if len(k_flat) != num_params:
+        raise ValueError(
+            f"k_flat must specify the upper triangle of the transform matrix. "
+            f"k_flat length is {len(k_flat)}. Expected {num_params}."
+        )
+
+
+def _antisymmetric_matrix_from_upper_tri(k_flat: torch.Tensor, k_dim: int) -> torch.Tensor:
+    """Anti-symmetric matrix from its flattened strict upper triangle."""
+    rows, cols = torch.triu_indices(k_dim, k_dim, offset=1, device=k_flat.device)
+    k = k_flat.new_zeros(k_dim * k_dim).scatter(0, rows * k_dim + cols, k_flat)
+    k = k.reshape(k_dim, k_dim)
+    return k - k.T
+
+
+def _rotate_eri(eri: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``sum_pqrs eri[p,q,r,s] u[p,i] u[q,j] u[r,k] u[s,l]`` as four
+    single-index contractions, O(n^5): each turns the leading index into a
+    trailing one."""
+    n = u.shape[0]
+    for _ in range(4):
+        eri = (eri.reshape(n, -1).T @ u).reshape(n, n, n, n)
+    return eri
+
+
+def _rotate(hcore: torch.Tensor, eri: torch.Tensor, k_flat: torch.Tensor):
+    u = torch.linalg.matrix_exp(_antisymmetric_matrix_from_upper_tri(k_flat, hcore.shape[0]))
+    return u.T @ hcore @ u, _rotate_eri(eri.contiguous(), u)
+
+
+def rotate_integrals(
+    hcore: np.ndarray, eri: np.ndarray, k_flat: np.ndarray, *, device="cuda"
+) -> tuple[np.ndarray, np.ndarray]:
+    """Similarity-transform the integrals by ``U = expm(K(k_flat))`` in f64 on
+    ``device``: ``h' = U^T h U`` and each of the four ``eri`` indices rotated
+    by ``U``.  ``eri`` is in whatever index convention the caller uses
+    downstream (the transform is basis-covariant)."""
+    _check_k_flat(k_flat, hcore.shape[0])
+    device = checked_device(device)
+    h_rot, eri_rot = _rotate(
+        *(torch.tensor(np.asarray(x), dtype=torch.float64, device=device)
+          for x in (hcore, eri, k_flat))
+    )
+    return h_rot.cpu().numpy(), eri_rot.cpu().numpy()
+
+
+def _expm(a: torch.Tensor, squarings: int):
+    """``(exp(a), s)``: scaling by ``2**-s`` and squaring of a Taylor
+    polynomial, with no read-back to the host (``torch.linalg.matrix_exp``
+    reads the norm back to pick its degree, which a CUDA graph cannot hold).
+    ``s = ceil(log2 |a|_1)`` is clamped to ``squarings`` for the arithmetic;
+    the unclamped ``s`` comes back so the caller can tell when the clamp bit."""
+    with torch.no_grad():
+        s = torch.clamp(torch.ceil(torch.log2(torch.linalg.matrix_norm(a, ord=1))), min=0)
+    s_used = torch.clamp(s, max=squarings)
+    x = a * torch.exp2(-s_used)
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    p = eye
+    for j in range(EXPM_TAYLOR_DEGREE, 0, -1):  # Horner: I + x (I + x/2 (I + ...))
+        p = torch.addmm(eye, x, p, alpha=1.0 / j)
+    for i in range(squarings):
+        p = torch.where(s_used > i, p @ p, p)
+    return p, s
+
+
+def _rotated_energy(dm1, dm2, hcore, eri, k_flat, squarings=EXPM_SQUARINGS):
+    """Energy of fixed RDMs under rotated integrals (the autograd target),
+    and the squaring count its exponential asked for (see :func:`_expm`)."""
+    u, s = _expm(_antisymmetric_matrix_from_upper_tri(k_flat, hcore.shape[0]), squarings)
+    h_rot = u.T @ hcore @ u
+    eri_rot = _rotate_eri(eri, u)
+    return torch.sum(dm1 * h_rot) + 0.5 * torch.sum(dm2 * eri_rot), s
+
+
+def _sgd_step(dm1, dm2, hcore, eri, k, vel, s_max, learning_rate, momentum, squarings):
+    """One SGD-with-momentum step, in place on ``k`` and ``vel``; ``s_max``
+    keeps the largest squaring count a generator asked for."""
+    k_leaf = k.detach().requires_grad_(True)
+    energy, s = _rotated_energy(dm1, dm2, hcore, eri, k_leaf, squarings)
+    (grad,) = torch.autograd.grad(energy, k_leaf)
+    vel.copy_(learning_rate * grad + momentum * vel)
+    k.sub_(vel)
+    torch.maximum(s_max, s, out=s_max)
+
+
+def _sgd_eager(dm1, dm2, hcore, eri, k_flat, learning_rate, momentum, num_steps, squarings):
+    """``num_steps`` steps launched one op at a time; returns ``(k, s_max)``."""
+    k, vel = k_flat.clone(), torch.zeros_like(k_flat)
+    s_max = k_flat.new_zeros(())
+    for _ in range(num_steps):
+        _sgd_step(dm1, dm2, hcore, eri, k, vel, s_max, learning_rate, momentum, squarings)
+    return k, int(s_max)
+
+
+def _sgd_graph(dm1, dm2, hcore, eri, k_flat, learning_rate, momentum, num_steps, squarings):
+    """The same steps on the card, one step captured in a CUDA graph and
+    replayed ``num_steps`` times (a step is ~200 kernels on 16 x 16
+    matrices: launched one by one, their host overhead is the step's time)."""
+    k, vel = k_flat.clone(), torch.zeros_like(k_flat)
+    s_max = k_flat.new_zeros(())
+
+    def step():
+        _sgd_step(dm1, dm2, hcore, eri, k, vel, s_max, learning_rate, momentum, squarings)
+
+    # warm up on a side stream (library handles and workspaces are made
+    # outside the capture), then reset the state the warm-up advanced
+    main, side = torch.cuda.current_stream(k.device), torch.cuda.Stream(k.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    main.wait_stream(side)
+    k.copy_(k_flat)
+    vel.zero_()
+    s_max.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for _ in range(num_steps):
+        graph.replay()
+    return k, int(s_max)
+
+
+def _sgd_momentum_orbital_step(dm1, dm2, hcore, eri, k_flat, learning_rate, momentum,
+                               num_steps: int) -> torch.Tensor:
+    """``num_steps`` of SGD with momentum on the rotation parameters, on
+    ``k_flat``'s device: a replayed CUDA graph on the card, eager on the CPU.
+    Where a generator outgrew the squarings the step holds, the steps run
+    again with more, so the result is that of an unclamped ``expm``."""
+    run = _sgd_graph if k_flat.device.type == "cuda" else _sgd_eager
+    squarings = EXPM_SQUARINGS
+    while True:
+        k, s_max = run(dm1, dm2, hcore, eri, k_flat, learning_rate, momentum, num_steps,
+                       squarings)
+        if s_max <= squarings:
+            return k
+        squarings = s_max
+
+
+def optimize_orbitals(
+    bitstring_matrix: tuple[np.ndarray, np.ndarray] | np.ndarray,
+    /,
+    hcore: np.ndarray,
+    eri: np.ndarray,
+    k_flat: np.ndarray,
+    *,
+    open_shell: bool = False,
+    spin_sq: float = 0.0,
+    num_iters: int = 10,
+    num_steps_grad: int = 10_000,
+    learning_rate: float = 0.01,
+    momentum: float = 0.9,
+    device="cuda",
+    **kwargs,
+) -> tuple[float, np.ndarray, tuple[np.ndarray, np.ndarray]]:
+    """Optimize an orbital rotation to lower the SCI ground-state energy.
+
+    ``sqd_tpu.fermion.optimize_orbitals`` plus ``device``: alternate (1)
+    rotate the integrals by ``expm(K)``, (2) solve SCI in the fixed subspace
+    with :func:`solve_sci`, (3) descend the RDM-contracted rotated-energy
+    surface with ``num_steps_grad`` steps of SGD with momentum, the gradient
+    by ``torch.autograd`` (on the card, each step a replayed CUDA graph).
+
+    Args:
+        bitstring_matrix: bitstring matrix or (strings_a, strings_b) pair.
+        hcore / eri: integrals (chemist convention).
+        k_flat: flattened strict upper triangle of the antisymmetric generator.
+        open_shell: see :func:`bitstring_matrix_to_ci_strs`.
+        spin_sq: target S^2 enforced via penalty during the solves.
+        num_iters: outer alternation count.
+        num_steps_grad: SGD steps per outer iteration.
+        learning_rate: SGD learning rate.
+        momentum: SGD momentum.
+        device: where the rotations, solves and SGD steps run.
+        **kwargs: solver options forwarded to :func:`solve_sci`.
+
+    Returns:
+        (energy from the last solve, optimized k_flat, (occ_a, occ_b)).
+    """
+    norb = hcore.shape[0]
+    _check_k_flat(k_flat, norb)
+    device = checked_device(device)
+    if isinstance(bitstring_matrix, tuple):
+        ci_strs = bitstring_matrix
+    else:
+        ci_strs = bitstring_matrix_to_ci_strs(bitstring_matrix, open_shell=open_shell)
+    ci_strs = _check_ci_strs(ci_strs)
+    nelec = (_hamming_of_first(ci_strs[0]), _hamming_of_first(ci_strs[1]))
+
+    def on_device(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float64, device=device)
+
+    k = on_device(k_flat)
+    hcore_d = on_device(hcore)
+    # physicist ordering for the rotation path, as sqd_tpu
+    eri_phys = on_device(np.transpose(np.asarray(eri), (0, 2, 3, 1)))
+
+    energy = 0.0
+    avg_occupancy: tuple[np.ndarray, np.ndarray] = (np.zeros(norb), np.zeros(norb))
+    for _ in range(num_iters):
+        h_rot, eri_rot_phys = _rotate(hcore_d, eri_phys, k)
+        eri_rot_chem = eri_rot_phys.permute(0, 3, 1, 2).contiguous()
+        result = solve_sci(
+            ci_strs, h_rot.cpu().numpy(), eri_rot_chem.cpu().numpy(),
+            norb=norb, nelec=nelec, spin_sq=spin_sq, device=device, **kwargs,
+        )
+        energy = result.energy
+        avg_occupancy = result.orbital_occupancies
+        k = _sgd_momentum_orbital_step(
+            on_device(result.rdm1), on_device(np.transpose(result.rdm2, (0, 2, 3, 1))),
+            hcore_d, eri_phys, k, learning_rate, momentum, num_steps_grad,
+        )
+    return energy, k.cpu().numpy(), avg_occupancy
+
+
+# ---------------------------------------------------------------------------
+# excitation augmentation
+# ---------------------------------------------------------------------------
+
+# the largest (ops, samples, bits) bool block of one operator chunk; the
+# legality test holds about four such blocks at once
+EXCITATION_CHUNK_BYTES = 512 * 1024**2
+
+
+def _transition_str_to_bool(string_rep: np.ndarray):
+    """Parse transition-operator strings into (diag, create, annihilate) masks.
+
+    Characters per mode: identity ``I``, creation ``+``, annihilation ``-``,
+    number ``n``.
+    """
+    string_rep = np.asarray(string_rep)
+    diag = np.logical_or(string_rep == "I", string_rep == "n")
+    create = np.logical_or(string_rep == "+", string_rep == "n")
+    annihilate = np.logical_or(string_rep == "-", string_rep == "n")
+    return diag, create, annihilate
+
+
+def apply_excitations(bitstring_matrix: torch.Tensor, diag: torch.Tensor,
+                      create: torch.Tensor, annihilate: torch.Tensor):
+    """Apply each transition operator to each bitstring, broadcast on the
+    tensors' device.
+
+    Returns (augmented rows, legality mask) of shapes
+    ``(n_ops, n_samples, n_bits)`` / ``(n_ops, n_samples)``: a row is legal
+    unless an operator creates on an occupied mode or annihilates an empty
+    one.
+    """
+    bits = bitstring_matrix[None]  # (1, samples, bits)
+    d, c, a = diag[:, None], create[:, None], annihilate[:, None]  # (ops, 1, bits)
+    illegal = (bits & (c & ~d)) | (~bits & a)
+    return bits == d, ~illegal.any(dim=-1)
+
+
+def enlarge_batch_from_transitions(
+    bitstring_matrix: np.ndarray, transition_operators: np.ndarray, *, device="cuda"
+) -> np.ndarray:
+    """Augment a configuration batch by applying transition operators.
+
+    Every operator is applied to every sample on ``device``; illegal
+    applications (creating on an occupied mode or annihilating an empty one)
+    are dropped.  The rows come out operator-major, as ``sqd_tpu``'s; the
+    operators go in chunks of at most ``EXCITATION_CHUNK_BYTES`` of rows.
+    """
+    device = checked_device(device)
+    diag, create, annihilate = _transition_str_to_bool(transition_operators)
+    if diag.ndim == 1:
+        diag, create, annihilate = diag[None], create[None], annihilate[None]
+    bits = torch.as_tensor(np.asarray(bitstring_matrix, dtype=bool), device=device)
+    masks = [torch.as_tensor(x, device=device) for x in (diag, create, annihilate)]
+    chunk = max(1, EXCITATION_CHUNK_BYTES // max(bits.numel(), 1))
+    out = [np.zeros((0, bits.shape[1]), dtype=bool)]
+    for o0 in range(0, len(diag), chunk):
+        augmented, legal = apply_excitations(bits, *(x[o0:o0 + chunk] for x in masks))
+        out.append(augmented[legal].cpu().numpy())
+    return np.concatenate(out)

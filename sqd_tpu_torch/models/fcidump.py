@@ -1,5 +1,5 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
-"""FCIDUMP molecular-integral reader (``sqd_tpu.models.fcidump.read_fcidump``)."""
+"""FCIDUMP molecular-integral reader and writer (a copy of ``sqd_tpu.models.fcidump``)."""
 
 from __future__ import annotations
 
@@ -76,7 +76,25 @@ def read_fcidump(path) -> dict:
     }
 
 
-def write_fcidump(*args, **kwargs):
-    """Write integrals as FCIDUMP (``sqd_tpu.models.fcidump.write_fcidump``):
-    not ported yet."""
-    raise NotImplementedError("write_fcidump is not ported yet; see ROADMAP.md")
+def write_fcidump(path, h1e, eri, *, nelec, ecore: float = 0.0, ms2: int = 0, tol: float = 1e-12):
+    """Write (h1e, eri) to FCIDUMP (unique 8-fold-symmetric elements only)."""
+    norb = h1e.shape[0]
+    if isinstance(nelec, tuple):
+        ms2 = nelec[0] - nelec[1]
+        nelec = sum(nelec)
+    with open(path, "w") as f:
+        f.write(f"&FCI NORB={norb},NELEC={nelec},MS2={ms2},\n")
+        f.write(" ORBSYM=" + ",".join(["1"] * norb) + ",\n ISYM=1,\n&END\n")
+        for p in range(norb):
+            for q in range(p + 1):
+                for r in range(p + 1):
+                    s_max = q if r == p else r
+                    for s in range(s_max + 1):
+                        v = eri[p, q, r, s]
+                        if abs(v) > tol:
+                            f.write(f" {v:23.16E} {p+1:4d} {q+1:4d} {r+1:4d} {s+1:4d}\n")
+        for p in range(norb):
+            for q in range(p + 1):
+                if abs(h1e[p, q]) > tol:
+                    f.write(f" {h1e[p, q]:23.16E} {p+1:4d} {q+1:4d}    0    0\n")
+        f.write(f" {ecore:23.16E}    0    0    0    0\n")

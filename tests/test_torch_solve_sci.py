@@ -104,25 +104,39 @@ def test_headline_fcidump_matches_chem():
     assert recorded["energy_total"] < mf.e_tot
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """The paths that raised ``NotImplementedError`` until the whole fermion
+    API was ported now run (each is held against ``sqd_tpu`` in its own test
+    file); what is left raises ``ValueError`` as ``sqd_tpu`` does."""
     strs = np.array([0b111, 0b1011])
     h1, eri = hubbard_integrals(4, u=1.0)
     # ported: at 16 pairs "auto" attaches no factor, and the strategy says so
     with pytest.raises(ValueError, match="dense_df.*requires a PSD ERI factor"):
         fermion.solve_sci((strs, strs), h1, eri, 4, (3, 3), device="cpu",
                           matvec_strategy="dense_df")
-    rows = np.ones((4, 8), dtype=bool)
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        fermion.diagonalize_fermionic_hamiltonian(
-            h1, eri, BitArray.from_bool_array(rows), 2, 4, (3, 3), checkpoint_path="loop.npz",
-            device="cpu")
-    for unported in (fermion.solve_sci_excited, fermion.optimize_orbitals,
-                     fermion.rotate_integrals, fermion.apply_excitations,
-                     fermion.enlarge_batch_from_transitions, fermion.SCIState.load):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            unported("anything")
-    state = fermion.SCIState(np.zeros((2, 2)), strs, strs, 4, (3, 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="SCIState.save"):
-        state.save("state.npz")
+    # the loop writes its checkpoint after each iteration
+    rows = np.array([[0, 1, 1, 1, 0, 1, 1, 1], [1, 0, 1, 1, 0, 1, 1, 1]], dtype=bool)
+    best = fermion.diagonalize_fermionic_hamiltonian(
+        h1, eri, BitArray.from_bool_array(rows), 2, 4, (3, 3), max_iterations=1, seed=0,
+        checkpoint_path=tmp_path / "loop.npz", device="cpu")
+    from sqd_tpu_torch.utils.checkpoint import load_loop_state
+
+    assert load_loop_state(tmp_path / "loop.npz").best_energy == best.energy
+    ground = fermion.solve_sci((strs, strs), h1, eri, 4, (3, 3), spin_sq=0.0, device="cpu")
+    (excited,) = fermion.solve_sci_excited((strs, strs), h1, eri, 4, (3, 3), k=1,
+                                           spin_sq=0.0, device="cpu")
+    assert abs(excited.energy - ground.energy) < 1e-10
+    energy, k_flat, _ = fermion.optimize_orbitals((strs, strs), h1, eri, np.zeros(6),
+                                                  num_iters=1, num_steps_grad=0, device="cpu")
+    assert abs(energy - ground.energy) < 1e-10 and not k_flat.any()
+    h_rot, eri_rot = fermion.rotate_integrals(h1, eri, np.zeros(6), device="cpu")
+    assert np.array_equal(h_rot, h1) and np.array_equal(eri_rot, eri)
+    ops = np.array([["I"] * 8, ["+"] + ["I"] * 7])
+    np.testing.assert_array_equal(fermion.enlarge_batch_from_transitions(rows, ops, device="cpu"),
+                                  [rows[0], rows[1], rows[0] | (np.arange(8) == 0)])
+    state = fermion.SCIState(np.eye(2), strs, strs, 4, (3, 3), device="cpu")
+    state.save(tmp_path / "state.npz")
+    np.testing.assert_array_equal(
+        fermion.SCIState.load(tmp_path / "state.npz", device="cpu").amplitudes, np.eye(2))
     with pytest.raises(ValueError, match="hamming weight"):
         fermion.solve_sci((np.array([0b111, 0b1]), strs), h1, eri, 4, (3, 3), device="cpu")

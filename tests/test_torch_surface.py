@@ -17,7 +17,6 @@ import sqd_tpu
 import sqd_tpu_torch
 from sqd_tpu.ops import linktab as jax_linktab
 from sqd_tpu_torch import fermion, native
-from sqd_tpu_torch.models import fcidump
 from sqd_tpu_torch.ops import bitpack, davidson, hamiltonian, linktab, rdm
 
 def _reexported_names():
@@ -80,17 +79,8 @@ def test_module_all_resolves(ours, theirs):
 
 
 UNPORTED = {
-    "fermion.solve_sci_excited": fermion.solve_sci_excited,
-    "fermion.optimize_orbitals": fermion.optimize_orbitals,
-    "fermion.rotate_integrals": fermion.rotate_integrals,
-    "fermion.apply_excitations": fermion.apply_excitations,
-    "fermion.enlarge_batch_from_transitions": fermion.enlarge_batch_from_transitions,
-    "package.rotate_integrals": sqd_tpu_torch.rotate_integrals,
-    "package.optimize_orbitals": sqd_tpu_torch.optimize_orbitals,
-    "package.enlarge_batch_from_transitions": sqd_tpu_torch.enlarge_batch_from_transitions,
     "linktab.build_gather_tables": linktab.build_gather_tables,
     "hamiltonian.build_samespin_tables": hamiltonian.build_samespin_tables,
-    "fcidump.write_fcidump": fcidump.write_fcidump,
     "davidson.davidson_ground_state_segmented": davidson.davidson_ground_state_segmented,
 }
 

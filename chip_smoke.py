@@ -133,7 +133,30 @@ Phases, each printing one line; any failure exits non-zero:
    through ``SCIState.save``/``load`` with equal amplitudes, strings and
    1-RDM; and one headline ``solve_sci`` under ``profile_trace``, whose
    Chrome trace must hold the kernel (its device time printed beside phase
-   3's CUDA-event time).
+   3's CUDA-event time);
+12. from geometry — (a) N2/6-31G at ``tools/make_headline_data.py``'s
+   geometry through the port's own chemistry: ``chem.Molecule`` ->
+   ``ao_integrals`` (the native kernel) -> ``rhf`` ->
+   ``active_space_integrals(ncas=16, nelecas=10)``; the RHF energy within
+   1e-8 Ha of ``sqd_tpu.chem``'s record (``tools/make_chem_data.py``) and
+   ``ecore`` within 1e-8 Ha of the committed FCIDUMP's; then every one of
+   the C(16,5) strings per spin on these integrals: the operator built with
+   ``tables_backend="native"`` and ``"device"`` (:func:`compare_tables`: each
+   warm, twice, on a synchronised host clock; gather tables equal bit for
+   bit, same-spin lists equal once the device's valid zero entries are
+   dropped, values within 1e-14 * max|val|, one f64 matvec within
+   1e-12 * max(|sigma|, 1), one f32 matvec of each timed), and ``solve_sci``
+   with its defaults, which must launch the kernel and land within 2e-6 Ha
+   of the published -109.046671778080 Ha and 1e-6 Ha of phase 7's energy,
+   with each stage's seconds and the peak memory; (b) the same table check at
+   phase 5's headline operator and phase 10's config-5 operator (12,880
+   same-spin candidates a string: the device build's row chunks and peak
+   printed); (c) BASELINE config 4's named systems: triplet CH2/STO-3G ROHF
+   and UHF within 1e-8 Ha of the record, [2Fe-2S]/STO-3G integral digests
+   (d shells, native) within 1e-10 relative and its ROHF after 80 cycles
+   within 1e-6 Ha (it does not converge; the gap is printed), then
+   ``solve_sci`` on the card over its whole CAS(6o,(4,2)) sector (225
+   determinants) within 1e-7 Ha of :func:`host_f64_energy` of its vector.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -142,6 +165,7 @@ The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -203,6 +227,22 @@ OO = {"strings": 181, "rotation_seed": 17, "rotation_scale": 0.1,
       "num_iters": 3, "num_steps_grad": 10_000, "learning_rate": 0.01, "momentum": 0.9}
 EXCITED_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "excited_n2_631g.json")
 EXCITED_K = 3
+# phase 12: from geometry.  The molecules (sqd_tpu_torch.chem), and the
+# sqd_tpu.chem record of tools/make_chem_data.py
+CHEM_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "chem_records.json")
+N2_ATOMS = [("N", (0.0, 0.0, 0.0)), ("N", (1.0, 0.0, 0.0))]  # tools/make_headline_data.py
+# triplet CH2 (examples/16_open_shell_rohf.py): r(CH) = 1.0775 A, HCH 134 deg
+_CH2_X, _CH2_Z = 1.0775 * math.sin(math.radians(67.0)), 1.0775 * math.cos(math.radians(67.0))
+CH2_ATOMS = [("C", (0.0, 0.0, 0.0)), ("H", (_CH2_X, 0.0, _CH2_Z)), ("H", (-_CH2_X, 0.0, _CH2_Z))]
+# the [2Fe-2S] rhombus of tests/test_chem_fe2s2.py: Fe-Fe 2.70 A, Fe-S 2.20 A
+_FE_X = 2.70 / 2
+_S_Y = math.sqrt(2.20**2 - _FE_X**2)
+FE2S2_ATOMS = [("Fe", (_FE_X, 0.0, 0.0)), ("Fe", (-_FE_X, 0.0, 0.0)),
+               ("S", (0.0, _S_Y, 0.0)), ("S", (0.0, -_S_Y, 0.0))]
+FE2S2_ROHF = {"spin": 4, "max_cycle": 80}
+TOL_CHEM = 1e-8  # Ha: RHF, ROHF, UHF and ecore against the record
+TOL_FE2S2_ROHF = 1e-6  # Ha: an unconverged ROHF after 80 cycles
+TOL_DIGEST = 1e-10  # relative, the [2Fe-2S] integral digests
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -409,6 +449,19 @@ def host_f64_energy(ham, vec, row_block=32) -> float:
     val_b = ham.nbr_val_b.cpu().numpy().astype(np.float64)
     e += float(np.sum(val_b * gram_c[idx_b, np.arange(n)[:, None]]))
     return e
+
+
+def integral_digests(ints) -> dict:
+    """Orbital-independent digests of AO integrals ``(S, T, V, eri)``: the
+    trace, Frobenius norm and sum of each (of ``eri`` as its pair matrix)."""
+    import numpy as np
+
+    out = {}
+    for name, x in zip(("S", "T", "V", "eri"), ints):
+        mat = x.reshape(x.shape[0] * x.shape[1], -1) if x.ndim == 4 else x
+        out[name] = {"trace": float(np.trace(mat)), "norm": float(np.linalg.norm(mat)),
+                     "sum": float(mat.sum())}
+    return out
 
 
 def sync() -> None:
@@ -757,11 +810,11 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
     return launches, best
 
 
-def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float]:
+def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]:
     """Phase 7: the full N2/6-31G CASCI (C(16,5)^2 = 19,079,424 determinants)
     through ``solve_sci`` with its defaults.  Returns the kernel's launches in
-    the solve, its times at this shape and its largest difference from the
-    plain version."""
+    the solve, its times at this shape, its largest difference from the
+    plain version and the total energy."""
     import numpy as np
     import torch
 
@@ -822,7 +875,7 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float]:
     for what, ok in checks.items():
         if not ok:
             fail(f"casci: {what}")
-    return launches, timing, err
+    return launches, timing, err, e_total
 
 
 def ccpvdz_phase(dev, smi, factor) -> int:
@@ -1208,6 +1261,11 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float]:
     err = check_kernel("config5", ham32, rng)
     timing = time_kernel("config5", ham32, rng, smi, rounds=3, calls=3)
     timing["max_abs_err"] = err
+    # the operator by both table builds (phase 12 (b)): 12,880 same-spin
+    # candidates per string, so the device build runs in row chunks; the
+    # pair factor, which both backends share, is left out of these builds
+    compare_tables("config5", dev, smi, packed, packed, h1, eri, norb, nelec, pad_to=(pad, pad),
+                   eri_factor=None)
 
     # -- (b) one matvec by each route -------------------------------------------
     torch.cuda.empty_cache()
@@ -1711,6 +1769,252 @@ def resume_phase(dev, smi, h1, eri, ecore, uninterrupted, strs_a, strs_b, kernel
     return launches
 
 
+TOL_TABLE_VAL = 1e-14  # relative to max|val|: same-spin values, device against native
+TOL_TABLE_MATVEC = 1e-12  # relative to max(|sigma|, 1): one f64 matvec of each operator
+
+
+def compare_tables(label, dev, smi, pa, pb, h1, eri, norb, nelec, **kwargs) -> dict:
+    """Build the f64 operator with ``tables_backend="native"`` and
+    ``"device"``, each warm and then twice on a synchronised host clock; fail
+    unless the gather tables are equal bit for bit, the same-spin lists equal
+    once the device's valid entries of value 0 are dropped (the native build
+    keeps only values != 0: its compaction, applied to the device lists,
+    gives its layout) with values within ``TOL_TABLE_VAL * max|val|``, and one
+    f64 matvec of each within ``TOL_TABLE_MATVEC * max(|sigma|, 1)``; time one
+    f32 matvec of each.  Returns both backends' seconds, the device build's
+    chunks and peak, and the f32 matvec times."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import native
+    from sqd_tpu_torch.ops import hamiltonian as ham_ops
+
+    chunks = [0]
+    candidates = ham_ops._samespin_candidates
+
+    def counted(*args):
+        chunks[0] += 1
+        return candidates(*args)
+
+    def build(backend):
+        return ham_ops.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=dev,
+                                             tables_backend=backend, **kwargs)
+
+    seconds = {"native": [], "device": []}
+    ham_ops._samespin_candidates = counted
+    try:
+        for backend in ("native", "device"):
+            build(backend)  # warm
+        for _ in range(2):
+            for backend in ("native", "device"):
+                chunks[0] = 0
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                sync()
+                t0 = time.perf_counter()
+                ham = build(backend)
+                sync()
+                seconds[backend].append(time.perf_counter() - t0)
+                if backend == "device":
+                    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                    chunks_per_spin = chunks[0] // 2
+                del ham
+    finally:
+        ham_ops._samespin_candidates = candidates
+    ham_n, ham_d = build("native"), build("device")
+    gather_equal = all(torch.equal(getattr(ham_n, k), getattr(ham_d, k))
+                       for k in ("src_a", "sign_a", "src_b", "sign_b"))
+    idx_equal, val_err, val_scale = True, 0.0, 0.0
+    for spin in "ab":
+        idx_n = getattr(ham_n, f"nbr_idx_{spin}").cpu().numpy()
+        val_n = getattr(ham_n, f"nbr_val_{spin}").cpu().numpy()
+        idx_d, val_d = native.compact_neighbours(
+            getattr(ham_d, f"nbr_idx_{spin}").cpu().numpy(),
+            getattr(ham_d, f"nbr_val_{spin}").cpu().numpy())
+        same = idx_d.shape == idx_n.shape and np.array_equal(idx_d, idx_n)
+        idx_equal &= same
+        if same:
+            val_err = max(val_err, float(np.abs(val_d - val_n).max()))
+        val_scale = max(val_scale, float(np.abs(val_n).max()))
+    hd_equal = torch.equal(ham_n.hdiag, ham_d.hdiag)
+    c = torch.as_tensor(np.random.default_rng(12).normal(size=ham_n.shape), device=dev)
+    sig_n, sig_d = ham_n.matvec(c), ham_d.matvec(c)
+    mv_err = float((sig_n - sig_d).abs().max())
+    mv_bound = TOL_TABLE_MATVEC * max(float(sig_n.abs().max()), 1.0)
+    # what the device lists' valid zero entries cost: one f32 matvec of each
+    c32 = c.to(torch.float32)
+    f32_ms = {}
+    for backend, ham in (("native", ham_n), ("device", ham_d)):
+        ham32 = ham.astype(torch.float32)
+        f32_ms[backend] = float(np.median([event_ms(lambda: ham32.matvec(c32), 3)
+                                           for _ in range(3)]))
+    del ham32
+    widths = (tuple(ham_n.nbr_idx_a.shape), tuple(ham_d.nbr_idx_a.shape))
+    t_n, t_d = seconds["native"], seconds["device"]
+    print(f"tables [{label}] operator {ham_n.shape}, npair {norb * norb}, "
+          f"{pa.shape[1]}-word strings ({smi}): native {t_n[0]:.4f}, {t_n[1]:.4f} s; device "
+          f"{t_d[0]:.4f}, {t_d[1]:.4f} s (warm, synchronised host clock); device same-spin "
+          f"build {chunks_per_spin} row chunk(s) per spin, peak {peak:.3f} GB over the "
+          f"operator's base; alpha lists native {widths[0]}, device {widths[1]}; gather "
+          f"tables equal {gather_equal}, same-spin idx equal {idx_equal}, max|dval| "
+          f"{val_err:.3e} (bound {TOL_TABLE_VAL * val_scale:.3e}), hdiag equal {hd_equal}, f64 "
+          f"matvec max|diff| {mv_err:.3e} (bound {mv_bound:.3e}); one f32 matvec on the native "
+          f"tables {f32_ms['native']:.4f} ms, on the device tables {f32_ms['device']:.4f} ms "
+          f"(medians of 3 rounds of 3 calls, CUDA events)", flush=True)
+    checks = {
+        "gather tables equal bit for bit": gather_equal,
+        "same-spin idx equal bit for bit": idx_equal,
+        "same-spin values within 1e-14 max|val|": val_err <= TOL_TABLE_VAL * val_scale,
+        "one f64 matvec of each within 1e-12": mv_err <= mv_bound,
+        "the same diagonal": hd_equal,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"tables [{label}]: {what}")
+    return {"native_s": t_n, "device_s": t_d, "chunks_per_spin": chunks_per_spin,
+            "device_peak_gb": peak, "f32_matvec_ms": f32_ms}
+
+
+def geometry_phase(dev, smi, e_casci) -> int:
+    """Phase 12 (a): N2/6-31G from its geometry through the port's chemistry
+    to the full CASCI.  Returns the kernel's launches in the solve."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch import chem, fermion, native
+    from sqd_tpu_torch.models.fcidump import read_fcidump
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+
+    with open(CHEM_DATA) as f:
+        record = json.load(f)["n2_631g"]
+    dump = read_fcidump(DATA_STEM + ".fcidump")
+    stages = {}
+    t0 = time.perf_counter()
+    mol = chem.Molecule(N2_ATOMS, basis="6-31g")
+    ints = chem.ao_integrals(mol, backend="native")
+    stages["AO integrals (native)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mf = chem.rhf(mol, integrals=ints)
+    stages["RHF"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h1, eri, ecore = chem.active_space_integrals(mf, ncas=16, nelecas=10)
+    stages["active space"] = time.perf_counter() - t0
+    print(f"from geometry: N2/6-31G, {mol.nao} AOs: RHF {mf.e_tot:.12f} Ha (converged "
+          f"{mf.converged}), |dE| to the sqd_tpu record {abs(mf.e_tot - record['rhf_e_tot']):.3e}; "
+          f"CAS(16o,10e) ecore {ecore:.14f}, |d| to the FCIDUMP's "
+          f"{abs(ecore - dump['ecore']):.3e}", flush=True)
+    checks = {
+        "RHF within 1e-8 Ha of the record": abs(mf.e_tot - record["rhf_e_tot"]) < TOL_CHEM,
+        "ecore within 1e-8 Ha of the FCIDUMP's": abs(ecore - dump["ecore"]) < TOL_CHEM,
+    }
+    strs = all_strings(16, 5)
+    packed = bitpack.pack_ints(strs, 16)
+    # the FCIDUMP writer drops integrals the chemistry keeps as rounding, and
+    # the native same-spin lists keep every value != 0
+    widths = [native.samespin_tables(packed, a, b, 16, 5)[0].shape[1]
+              for a, b in ((h1, eri), (dump["h1e"], dump["eri"]))]
+    print(f"from geometry: {np.count_nonzero(np.abs(eri) < 1e-12)} of {eri.size} eri entries "
+          f"below 1e-12 in magnitude ({np.count_nonzero(dump['eri'] == 0)} exactly 0 in the "
+          f"FCIDUMP); native same-spin lists {widths[0]} wide ({widths[1]} on the FCIDUMP's "
+          f"integrals)", flush=True)
+    tables = compare_tables("casci", dev, smi, packed, packed, h1, eri, 16, (5, 5),
+                            pad_to=(4384, 4384))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cross_spin.cross_spin_matvec.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    result = fermion.solve_sci((strs, strs), h1, eri, 16, (5, 5), device=dev)
+    sync()
+    stages["solve_sci"] = time.perf_counter() - t0
+    launches = cross_spin.cross_spin_matvec.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    e_total = result.energy + ecore
+    amps = result.sci_state.amplitudes
+    print(f"from geometry: CASCI {len(strs) ** 2} determinants: energy {e_total:.12f} Ha, "
+          f"|dE| to the published {abs(e_total - CASCI_ENERGY):.3e} (gate {TOL_CASCI:.0e}), to "
+          f"phase 7's {abs(e_total - e_casci):.3e} (gate 1e-6); kernel launches {launches}; "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in stages.items())}; table builds native "
+          f"{min(tables['native_s']):.3f} s, device {min(tables['device_s']):.3f} s; peak "
+          f"device memory {peak:.2f} GB ({smi})", flush=True)
+    checks.update({
+        "the kernel launched in the f32 Davidson": launches > 0,
+        "amplitudes (4368, 4368) and finite": amps.shape == (4368, 4368)
+        and bool(np.isfinite(amps).all()),
+        "energy within 2e-6 Ha of the published CASCI energy":
+            abs(e_total - CASCI_ENERGY) < TOL_CASCI,
+        "energy within 1e-6 Ha of phase 7's": abs(e_total - e_casci) < 1e-6,
+    })
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"from geometry: {what}")
+    return launches
+
+
+def open_shell_phase(dev, smi) -> None:
+    """Phase 12 (c): BASELINE config 4's named systems, triplet CH2 and
+    [2Fe-2S], through the port's open-shell chemistry."""
+    import numpy as np
+
+    from sqd_tpu_torch import chem, fermion
+    from sqd_tpu_torch.ops import bitpack
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+
+    with open(CHEM_DATA) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    ch2 = chem.Molecule(CH2_ATOMS, basis="sto-3g")
+    ints = chem.ao_integrals(ch2, backend="native")
+    ro = chem.rohf(ch2, spin=2, integrals=ints)
+    u = chem.uhf(ch2, spin=2, integrals=ints)
+    ref = record["ch2_sto3g_triplet"]
+    diffs = {"ROHF": abs(ro.e_tot - ref["rohf_e_tot"]), "UHF": abs(u.e_tot - ref["uhf_e_tot"]),
+             "UHF <S^2>": abs(u.spin_square - ref["uhf_spin_square"])}
+    print(f"open shells: CH2 triplet ROHF {ro.e_tot:.12f}, UHF {u.e_tot:.12f} Ha, <S^2> "
+          f"{u.spin_square:.9f}; against the record {', '.join(f'{k} {v:.3e}' for k, v in diffs.items())} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    checks = {f"CH2 {k} within 1e-8 of the record": v < TOL_CHEM for k, v in diffs.items()}
+
+    ref = record["fe2s2_sto3g"]
+    t0 = time.perf_counter()
+    fe2s2 = chem.Molecule(FE2S2_ATOMS, basis="sto-3g")
+    fe_ints = chem.ao_integrals(fe2s2, backend="native")
+    t_int = time.perf_counter() - t0
+    digests = integral_digests(fe_ints)
+    worst = max(abs(digests[m][k] - ref["digests"][m][k]) / abs(ref["digests"][m][k])
+                for m in digests for k in digests[m])
+    t0 = time.perf_counter()
+    mf = chem.rohf(fe2s2, integrals=fe_ints, **FE2S2_ROHF)
+    t_rohf = time.perf_counter() - t0
+    gap = abs(mf.e_tot - ref["rohf_e_tot"])
+    ncas, nelecas = 6, (4, 2)
+    h1, eri, ecore = chem.active_space_integrals(mf, ncas, nelecas)
+    sa, sb = all_strings(ncas, nelecas[0]), all_strings(ncas, nelecas[1])
+    t0 = time.perf_counter()
+    res = fermion.solve_sci((sa, sb), h1, eri, ncas, nelecas, device=dev)
+    t_solve = time.perf_counter() - t0
+    ham = build_sci_hamiltonian(bitpack.pack_ints(sa, ncas), bitpack.pack_ints(sb, ncas),
+                                h1, eri, ncas, nelecas, device=dev)
+    e_host = host_f64_energy(ham, res.sci_state.amplitudes)
+    print(f"open shells: [2Fe-2S]/STO-3G, {fe2s2.nao} AOs (d shells by the native kernel): "
+          f"integrals {t_int:.2f} s, digests within {worst:.3e} relative of the record (gate "
+          f"{TOL_DIGEST:.0e}); ROHF {FE2S2_ROHF['max_cycle']} cycles {t_rohf:.2f} s, "
+          f"{mf.e_tot:.10f} Ha (converged {mf.converged}), |dE| to the record {gap:.3e} (gate "
+          f"{TOL_FE2S2_ROHF:.0e}); CAS(6o,(4,2)) {len(sa) * len(sb)} determinants: solve_sci "
+          f"{t_solve:.3f} s, energy {res.energy + ecore:.10f} Ha, |E - host f64| "
+          f"{abs(res.energy - e_host):.3e} ({smi})", flush=True)
+    checks.update({
+        "[2Fe-2S] integral digests within 1e-10 relative": worst < TOL_DIGEST,
+        "[2Fe-2S] ROHF within 1e-6 Ha of the record": gap < TOL_FE2S2_ROHF,
+        "[2Fe-2S] CAS energy within 1e-7 Ha of host f64": abs(res.energy - e_host) < TOL_ENERGY
+        and bool(np.isfinite(res.sci_state.amplitudes).all()),
+    })
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"open shells: {what}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1903,10 +2207,12 @@ def main() -> None:
         if not ok:
             fail(what)
     del ham32, ham64
+    # the headline operator by both table builds (phase 12 (b))
+    compare_tables("headline", dev, smi, pa, pb, h1, eri, norb, nelec, pad_to=(1024, 1024))
 
     # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
     loop_launches, loop_best = sqd_loop_phase(dev, smi, h1, eri, ecore)
-    casci_launches, casci, casci_err = casci_phase(dev, smi, h1, eri, ecore, rng)
+    casci_launches, casci, casci_err, e_casci = casci_phase(dev, smi, h1, eri, ecore, rng)
     ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
 
@@ -1938,6 +2244,16 @@ def main() -> None:
     print(f"fermion API: {t11[-1] - t11[0]:.1f} s: {parts}; the script so far "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
+    # -- 12. from geometry: the port's chemistry to the full CASCI, with the
+    # device-built tables against the native ones; the open-shell systems
+    t12 = [time.perf_counter()]
+    geometry_launches = geometry_phase(dev, smi, e_casci)
+    t12.append(time.perf_counter())
+    open_shell_phase(dev, smi)
+    t12.append(time.perf_counter())
+    print(f"from geometry: {t12[-1] - t12[0]:.1f} s: (a) {t12[1] - t12[0]:.1f} s, (c) "
+          f"{t12[2] - t12[1]:.1f} s; the script {time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
@@ -1950,6 +2266,7 @@ def main() -> None:
         "launches_config5_gather": config5_launches,
         "launches_orbital_optimization": oo_launches,
         "launches_resumed_loop": resume_launches,
+        "launches_from_geometry": geometry_launches,
         "max_abs_err": max(*errs.values(), casci_err, config5_err),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],

@@ -19,6 +19,7 @@ import numpy as np
 from .build import load_library
 
 __all__ = [
+    "ao_integrals_cart",
     "available",
     "compact_neighbours",
     "connected_membership",
@@ -81,6 +82,11 @@ def load() -> ctypes.CDLL:
         _u32p, _i64, _int, _u32p, ctypes.c_double, ctypes.c_double, _f64p, _i64p, _i64p,
     ]
     lib.pauli_diag_from_packed.restype = None
+    lib.ao_integrals_cart.argtypes = [
+        _int, _i32p, _f64p, _i32p, _f64p, _f64p, _int, _f64p, _f64p, _int,
+        _f64p, _f64p, _f64p, _f64p,
+    ]
+    lib.ao_integrals_cart.restype = _int
     return lib
 
 
@@ -270,3 +276,39 @@ def compact_neighbours(idx: np.ndarray, val: np.ndarray, bucket: int = 8):
     idx[~keep] = 0
     val[~keep] = 0.0
     return idx, val
+
+
+def ao_integrals_cart(shells, charges, coords):
+    """Cartesian AO integrals ``(S, T, V, eri)`` by the native
+    McMurchie-Davidson kernel (eri in chemist ``(pq|rs)``, full 4-index).
+
+    ``shells`` is the :class:`sqd_tpu_torch.chem.integrals.Shell` list of a
+    built Molecule (normalized coefficients).  Returns ``None`` when a shell
+    has l > 2, the route to the NumPy quartets of
+    :func:`sqd_tpu_torch.chem.integrals.ao_integrals`; anything else the
+    kernel refuses raises.
+    """
+    if any(sh.l > 2 for sh in shells):
+        return None
+    ls = np.ascontiguousarray([sh.l for sh in shells], dtype=np.int32)
+    centers = np.ascontiguousarray(
+        np.concatenate([np.asarray(sh.center, np.float64) for sh in shells]))
+    prim_offs = np.zeros(len(shells) + 1, dtype=np.int32)
+    prim_offs[1:] = np.cumsum([len(sh.exps) for sh in shells])
+    exps = np.ascontiguousarray(np.concatenate([np.asarray(sh.exps, np.float64) for sh in shells]))
+    coefs = np.ascontiguousarray(
+        np.concatenate([np.asarray(sh.coefs, np.float64) for sh in shells]))
+    charges = np.ascontiguousarray(charges, dtype=np.float64)
+    coords = np.ascontiguousarray(coords, dtype=np.float64).reshape(-1)
+    nao = int(sum((sh.l + 1) * (sh.l + 2) // 2 for sh in shells))
+    s = np.zeros((nao, nao))
+    t = np.zeros((nao, nao))
+    v = np.zeros((nao, nao))
+    eri = np.zeros((nao, nao, nao, nao))
+    rc = load().ao_integrals_cart(
+        len(shells), ls, centers, prim_offs, exps, coefs,
+        len(charges), charges, coords, nao, s, t, v, eri,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ao_integrals_cart refused its input (code {rc})")
+    return s, t, v, eri

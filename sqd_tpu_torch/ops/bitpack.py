@@ -240,13 +240,34 @@ def torch_sort_packed(packed: torch.Tensor, *payloads: torch.Tensor):
     return (sorted_packed, *(p[order] for p in payloads)) if payloads else sorted_packed
 
 
-def torch_searchsorted_packed(sorted_packed: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """Branchless binary search over packed keys: the left insertion point.
+def _int64_keys(packed: torch.Tensor) -> torch.Tensor:
+    """Rows of one or two words as one int64 each, ordered as the rows'
+    unsigned values: ``(hi - 2**31) * 2**32 + lo`` stays inside int64."""
+    if packed.shape[-1] == 1:
+        return packed[..., 0].contiguous()
+    return (packed[..., 1] - 2**31) * 2**32 + packed[..., 0]
 
-    A query above every row gets ``n`` (``sqd_tpu.ops.bitpack.jnp_searchsorted_packed``
-    runs one more step than it needs and then reports ``n + 1``, through its
-    clamped gather; the ``find`` functions agree either way).
+
+def torch_searchsorted_packed(sorted_packed: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """The left insertion point of each query among the sorted packed rows.
+
+    Rows of at most two words (up to 64 bits) go through one
+    ``torch.searchsorted`` over int64 keys, wider rows through
+    :func:`_searchsorted_words` (which takes ~180 times as long over the
+    5.6 M two-word queries of a config-5 same-spin chunk on an H100,
+    ``probes/torch_table_builds.py``).  A query above every row gets ``n``
+    (``sqd_tpu.ops.bitpack.jnp_searchsorted_packed`` runs one more step than
+    it needs and then reports ``n + 1``, through its clamped gather; the
+    ``find`` functions agree either way).
     """
+    if sorted_packed.shape[-1] <= 2:
+        return torch.searchsorted(_int64_keys(sorted_packed), _int64_keys(queries))
+    return _searchsorted_words(sorted_packed, queries)
+
+
+def _searchsorted_words(sorted_packed: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Branchless binary search on the words: one gather of whole rows and a
+    lexicographic compare per step."""
     n = sorted_packed.shape[0]
     steps = max(1, int(np.ceil(np.log2(max(n, 1)))) + 1)
     q = queries.shape[0]

@@ -16,6 +16,11 @@ Cartesian product, the projected Hamiltonian splits exactly into
 * ``H_aa`` / ``H_bb`` (same spin): padded Slater-Condon neighbour lists
   applied as row/column gathers.
 
+The tables come from the native host build (``tables_backend="native"``, and
+``"auto"``) or are built on the device from the packed strings as torch ops
+(``"device"``: :func:`sqd_tpu_torch.ops.linktab.build_gather_tables` and
+:func:`build_samespin_tables`).
+
 The optional spin penalty ``shift * (S^2 - target)`` is exact in the product
 basis too.  Padded determinants have zero couplings and a 1e30 diagonal, so
 they stay exactly zero through the Krylov iteration.
@@ -36,7 +41,8 @@ import numpy as np
 import torch
 
 from .. import native
-from . import cross_spin
+from ..utils.device import checked_device
+from . import bitpack, cross_spin, linktab
 from .precision import highest_precision
 
 __all__ = [
@@ -66,6 +72,10 @@ TWO_PASS_G_BYTES = 4 * 1024**3
 # gather into its contraction; torch materialises it, so above this size the
 # channel runs in column (alpha) or row (beta) chunks.
 SAMESPIN_CHUNK_BYTES = 1024**3
+# Device bytes one row chunk of the device same-spin build may hold: per
+# candidate, its string and the three partial strings of the double parity,
+# the binary search's state and the values, about (12 + 6 W) 8-byte values.
+SAMESPIN_BUILD_BYTES = 1024**3
 
 
 def _chunk(total: int, bytes_per_item: int) -> int:
@@ -549,11 +559,148 @@ def _check_weights(strs_a_packed, strs_b_packed, nelec) -> None:
             )
 
 
-def build_samespin_tables(*args, **kwargs):
-    """The device build of the same-spin neighbour lists
-    (``sqd_tpu.ops.hamiltonian.build_samespin_tables``): not ported yet; the
-    lists come from :func:`sqd_tpu_torch.native.samespin_tables`."""
-    raise NotImplementedError("build_samespin_tables is not ported yet; see ROADMAP.md")
+def _candidate_index_arrays(n_occ: int, n_virt: int):
+    """Static candidate enumeration: singles (i, k) and doubles (i<j, k<l)."""
+    si, sk = np.meshgrid(np.arange(n_occ), np.arange(n_virt), indexing="ij")
+    si, sk = si.ravel(), sk.ravel()
+    if n_occ >= 2 and n_virt >= 2:
+        oi, oj = np.triu_indices(n_occ, k=1)
+        vk, vl = np.triu_indices(n_virt, k=1)
+        di = np.repeat(oi, len(vk))
+        dj = np.repeat(oj, len(vk))
+        dk = np.tile(vk, len(oi))
+        dl = np.tile(vl, len(oi))
+    else:
+        di = dj = dk = dl = np.zeros(0, dtype=np.int64)
+    return (si, sk), (di, dj, dk, dl)
+
+
+def _samespin_candidates(strs, rows, h1e, eri, norb: int, nelec_spin: int):
+    """Every candidate (neighbour index, Slater-Condon value, valid) of the
+    strings ``strs[rows]``, in the order [diagonal, singles, doubles].
+
+    ``strs`` is the whole sorted set as an int64 word tensor, ``rows`` a
+    slice of it; values are computed in ``eri``'s dtype.  Returns
+    ``(idx, val, valid)``, each ``(len(rows), C)`` with
+    ``C = 1 + singles + doubles``, invalid entries clamped to index 0 and
+    value 0.
+    """
+    device, dt = strs.device, eri.dtype
+    j_str = strs[rows]  # (R, W)
+    r, w = j_str.shape
+    occ = linktab.occupancy_matrix(j_str, norb)  # (R, norb) 0/1
+    # occupied positions ascending, then virtual positions ascending
+    sort_key = (1 - occ) * norb + torch.arange(norb, device=device)
+    pos = torch.argsort(sort_key, dim=1)
+    occ_pos, virt_pos = pos[:, :nelec_spin], pos[:, nelec_spin:]
+    bits = bitpack.to_device_words(bitpack.bit_masks(norb), device)  # (norb, W)
+    prefix = bitpack.to_device_words(bitpack.prefix_masks(norb), device)  # (norb+1, W)
+    # mean-field weights of the singles, Wx[pq, k] = (pq|kk) - (pk|kq), and
+    # the one-spin diagonal occ.h_diag + 1/2 occ (J - K) occ, with no TF32
+    with highest_precision():
+        wx = (torch.einsum("pqkk->pqk", eri) - torch.einsum("pkkq->pqk", eri)).reshape(
+            norb * norb, norb)
+        od = occ.to(dt)
+        mf = od @ wx.T  # (R, npair)
+        jm = torch.einsum("ppqq->pq", eri)
+        km = torch.einsum("pqqp->pq", eri)
+        diag = od @ torch.diagonal(h1e) + 0.5 * torch.einsum("ip,pq,iq->i", od, jm - km, od)
+
+    def parity(x, t):
+        return bitpack.torch_popcount_rows(x & prefix[t])
+
+    def sign_of(par):
+        return (1 - 2 * (par & 1)).to(dt)
+
+    def positions(table, cols):
+        return table[:, torch.as_tensor(cols, device=device)]  # (R, len(cols))
+
+    (si, sk), (di, dj, dk, dl) = _candidate_index_arrays(nelec_spin, norb - nelec_spin)
+    # singles: I = J - p + q, p occupied in J, q virtual in J; the sign of
+    # <J|a+_p a_q|I> on I: remove q, then add p
+    p, q = positions(occ_pos, si), positions(virt_pos, sk)
+    i1 = j_str[:, None, :] ^ bits[p] ^ bits[q]  # (R, ns, W)
+    sgn = sign_of(parity(i1, q) + parity(i1, p) - (q < p).to(torch.int32))
+    pq = p * norb + q
+    val1 = sgn * (h1e[p, q] + torch.gather(mf, 1, pq) - wx.reshape(-1)[pq * norb + p])
+    idx1 = bitpack.torch_find_packed(strs, i1.reshape(-1, w)).reshape(pq.shape)
+    del i1, sgn, pq
+    idx_parts = [torch.arange(rows.start, rows.start + r, device=device)[:, None], idx1]
+    val_parts = [diag[:, None], val1]
+    if len(di):
+        # doubles: I = J - p - r + q + s; g is the sign of a+_p a+_r a_s a_q
+        # applied to I (sequential parities)
+        dp, dr = positions(occ_pos, di), positions(occ_pos, dj)  # (R, nd)
+        dq, ds = positions(virt_pos, dk), positions(virt_pos, dl)
+        i2 = j_str[:, None, :] ^ bits[dp] ^ bits[dr] ^ bits[dq] ^ bits[ds]  # (R, nd, W)
+        par = parity(i2, dq)
+        x = i2 ^ bits[dq]
+        par += parity(x, ds)
+        x ^= bits[ds]
+        par += parity(x, dr)
+        x ^= bits[dr]
+        par += parity(x, dp)
+        del x
+        g = sign_of(par)
+        eri_flat = eri.reshape(-1)
+
+        def e4(a, b, c, d):
+            return eri_flat[((a * norb + b) * norb + c) * norb + d]
+
+        val2 = 0.5 * g * (e4(dp, dq, dr, ds) + e4(dr, ds, dp, dq)
+                          - e4(dp, ds, dr, dq) - e4(dr, dq, dp, ds))
+        idx2 = bitpack.torch_find_packed(strs, i2.reshape(-1, w)).reshape(dp.shape)
+        del i2, g
+        idx_parts.append(idx2)
+        val_parts.append(val2)
+    idx = torch.cat(idx_parts, dim=1)
+    val = torch.cat(val_parts, dim=1)
+    valid = idx >= 0
+    return torch.where(valid, idx, 0), torch.where(valid, val, 0.0), valid
+
+
+def _compact_candidates(idx, val, valid):
+    """Valid candidates first in each row, in their order (a stable sort of
+    an int8 key: a bool sort on CUDA is not guaranteed stable), cut to the
+    largest valid count."""
+    order = torch.sort((~valid).to(torch.int8), dim=1, stable=True).indices
+    width = int(valid.sum(dim=1).max()) if valid.shape[0] else 0
+    order = order[:, :width]
+    return torch.gather(idx, 1, order), torch.gather(val, 1, order)
+
+
+def build_samespin_tables(strs_packed, h1e, eri, norb: int, nelec_spin: int, *,
+                          bucket: int = 8, device="cuda"):
+    """Padded Slater-Condon neighbour lists of one spin sector's ``H_ss``
+    (diagonal, singles, doubles), built on ``device``.
+
+    The port of ``sqd_tpu.ops.hamiltonian.build_samespin_tables``.  Values are
+    computed in the dtype of ``eri`` (a NumPy array or a tensor); rows go in
+    chunks within ``SAMESPIN_BUILD_BYTES``, each compacted as it is built.
+
+    Returns ``(idx, val)``: ``(n, L) int64`` and ``(n, L)``, with index 0 and
+    value 0 in unused slots.  ``L`` is the largest per-row neighbour count
+    rounded up to ``bucket`` (one host sync per chunk).
+    """
+    device = checked_device(device)
+    strs = bitpack.to_device_words(strs_packed, device)
+    eri = torch.as_tensor(eri, device=device)
+    h1e = torch.as_tensor(h1e, device=device).to(eri.dtype)
+    n, w = strs.shape
+    nelec_spin = int(nelec_spin)
+    n_cand = native.samespin_width(norb, nelec_spin)
+    step = max(1, SAMESPIN_BUILD_BYTES // (n_cand * (12 + 6 * w) * 8))
+    starts = range(0, n, step)
+    chunks = [_compact_candidates(*_samespin_candidates(
+        strs, slice(r0, min(r0 + step, n)), h1e, eri, norb, nelec_spin)) for r0 in starts]
+    most = max((ci.shape[1] for ci, _ in chunks), default=0)
+    width = min(n_cand, max(bucket, -(-most // bucket) * bucket))
+    idx = torch.zeros((n, width), dtype=torch.int64, device=device)
+    val = torch.zeros((n, width), dtype=eri.dtype, device=device)
+    for r0, (ci, cv) in zip(starts, chunks):
+        idx[r0 : r0 + ci.shape[0], : ci.shape[1]] = ci
+        val[r0 : r0 + cv.shape[0], : cv.shape[1]] = cv
+    return idx, val
 
 
 def build_sci_basis(
@@ -563,15 +710,30 @@ def build_sci_basis(
     nelec: tuple[int, int],
     *,
     device,
+    tables_backend: str = "auto",
 ) -> SCIBasis:
-    """Gather-table-only basis view (for RDM/S^2 queries), on ``device``."""
-    src_a, sign_a = native.gather_tables(np.asarray(strs_a_packed), norb)
-    src_b, sign_b = native.gather_tables(np.asarray(strs_b_packed), norb)
+    """Gather-table-only basis view (for RDM/S^2 queries), on ``device``.
+
+    ``tables_backend`` as in ``sqd_tpu``: ``"auto"`` and ``"native"`` build
+    the tables on the host (``"auto"`` falls back to the device only where
+    the library is missing, which in the port it never is: a failed build
+    raises), any other value on the device.
+    """
+    tables = []
+    for strs in (strs_a_packed, strs_b_packed):
+        if tables_backend in ("auto", "native"):
+            src, sign = native.gather_tables(np.asarray(strs), norb)
+            src = torch.as_tensor(src, dtype=torch.int64, device=device)
+            sign = torch.as_tensor(sign, device=device)
+        else:
+            src, sign = linktab.build_gather_tables(strs, norb, device=device)
+        tables += [src, sign]
+    src_a, sign_a, src_b, sign_b = tables
     return SCIBasis(
-        src_a=torch.as_tensor(src_a, dtype=torch.int64, device=device),
-        sign_a=torch.as_tensor(sign_a, device=device),
-        src_b=torch.as_tensor(src_b, dtype=torch.int64, device=device),
-        sign_b=torch.as_tensor(sign_b, device=device),
+        src_a=src_a,
+        sign_a=sign_a,
+        src_b=src_b,
+        sign_b=sign_b,
         norb=int(norb),
         nelec=tuple(int(x) for x in nelec),
     )
@@ -593,12 +755,19 @@ def build_sci_hamiltonian(
     col_block: int | str = "auto",
     table_cache=None,
     eri_factor: np.ndarray | str | None = "auto",
+    tables_backend: str = "auto",
 ) -> SCIHamiltonian:
-    """Assemble the projected Hamiltonian on ``device`` from native host tables.
+    """Assemble the projected Hamiltonian on ``device``.
 
-    The native branch of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``:
-    the same padding (``pad_to``; clamped tables extended with zero weights,
-    padded diagonal entries at 1e30), the same ``col_block`` (``"auto"``:
+    The port of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``, with its
+    ``tables_backend``: ``"auto"`` and ``"native"`` build the tables on the
+    host (the native library), ``"device"`` builds them on ``device`` from
+    the packed strings (:func:`linktab.build_gather_tables`,
+    :func:`build_samespin_tables`; its same-spin values computed in
+    ``dtype``, and ``table_cache`` ignored); any other value raises
+    ``ValueError``.  Both backends share the rest: the same padding
+    (``pad_to``; clamped tables extended with zero weights, padded diagonal
+    entries at 1e30), the same ``col_block`` (``"auto"``:
     :func:`_auto_col_block` and the alignment rule; an int: that block, 0 for
     none; ``N`` is padded to a multiple of it) and the same ``eri_factor``
     (``"auto"``: :func:`pivoted_cholesky_pairs` with rank at most
@@ -639,33 +808,45 @@ def build_sci_hamiltonian(
         eri_chol = pivoted_cholesky_pairs(eri_np, norb, max_rank=npair // 3)
     elif eri_factor not in (None, "auto"):
         raise ValueError(f"unknown eri_factor {eri_factor!r}")
-    # the cache stores per-string rows at the full candidate width: at high
-    # filling that width explodes and the direct build is the cheaper one
-    cached = (
-        table_cache is not None
-        and table_cache.usable(np.asarray(strs_a_packed))
-        and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
-    )
-    tables = table_cache if cached else native
-    src_a, sign_a = tables.gather_tables(strs_a_packed, norb)
-    src_b, sign_b = tables.gather_tables(strs_b_packed, norb)
-    ia, va = tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a)
-    ib, vb = tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b)
+    if tables_backend not in ("auto", "native", "device"):
+        raise ValueError(
+            f"unknown tables_backend {tables_backend!r} (expected 'auto', 'native' or 'device')"
+        )
+    if tables_backend in ("auto", "native"):
+        # the cache stores per-string rows at the full candidate width: at
+        # high filling that width explodes and the direct build is the
+        # cheaper one
+        cached = (
+            table_cache is not None
+            and table_cache.usable(np.asarray(strs_a_packed))
+            and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
+        )
+        tables = table_cache if cached else native
+        host = (*tables.gather_tables(strs_a_packed, norb),
+                *tables.gather_tables(strs_b_packed, norb),
+                *tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a),
+                *tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b))
+        src_a, sign_a, src_b, sign_b, ia, va, ib, vb = (
+            torch.as_tensor(t, device=device) for t in host)
+        src_a, src_b, ia, ib = (t.to(torch.int64) for t in (src_a, src_b, ia, ib))
+        va, vb = va.to(dtype), vb.to(dtype)
+    else:
+        h1_d = torch.as_tensor(h1_np, device=device).to(dtype)
+        eri_d = torch.as_tensor(eri_np, device=device).to(dtype)
+        src_a, sign_a = linktab.build_gather_tables(strs_a_packed, norb, device=device)
+        src_b, sign_b = linktab.build_gather_tables(strs_b_packed, norb, device=device)
+        ia, va = build_samespin_tables(strs_a_packed, h1_d, eri_d, norb, n_a, device=device)
+        ib, vb = build_samespin_tables(strs_b_packed, h1_d, eri_d, norb, n_b, device=device)
+    # the tables are clamped (invalid -> index 0 with zero weight), so
+    # padding extends them with zero-weight entries
+    pad = torch.nn.functional.pad
+    src_a, sign_a = pad(src_a, (0, pad_m)), pad(sign_a, (0, pad_m))
+    src_b, sign_b = pad(src_b, (0, pad_n)), pad(sign_b, (0, pad_n))
+    ia, va = pad(ia, (0, 0, 0, pad_m)), pad(va, (0, 0, 0, pad_m))
+    ib, vb = pad(ib, (0, 0, 0, pad_n)), pad(vb, (0, 0, 0, pad_n))
     occ_a = _occupancy_np(strs_a_packed, norb)
     occ_b = _occupancy_np(strs_b_packed, norb)
-    if pad_m or pad_n:
-        src_a = np.pad(src_a, ((0, 0), (0, pad_m)))
-        sign_a = np.pad(sign_a, ((0, 0), (0, pad_m)))
-        src_b = np.pad(src_b, ((0, 0), (0, pad_n)))
-        sign_b = np.pad(sign_b, ((0, 0), (0, pad_n)))
-        ia = np.pad(ia, ((0, pad_m), (0, 0)))
-        va = np.pad(va, ((0, pad_m), (0, 0)))
-        ib = np.pad(ib, ((0, pad_n), (0, 0)))
-        vb = np.pad(vb, ((0, pad_n), (0, 0)))
     eri_t = np.ascontiguousarray(eri_np.reshape(npair, npair).T)
-
-    def idx(x):
-        return torch.as_tensor(x, dtype=torch.int64, device=device)
 
     def val(x):
         return torch.as_tensor(x, device=device).to(dtype)
@@ -685,14 +866,14 @@ def build_sci_hamiltonian(
                         constant_values=1e30))
 
     return SCIHamiltonian(
-        src_a=idx(src_a),
-        sign_a=torch.as_tensor(sign_a, device=device),
-        src_b=idx(src_b),
-        sign_b=torch.as_tensor(sign_b, device=device),
-        nbr_idx_a=idx(ia),
-        nbr_val_a=val(va),
-        nbr_idx_b=idx(ib),
-        nbr_val_b=val(vb),
+        src_a=src_a,
+        sign_a=sign_a,
+        src_b=src_b,
+        sign_b=sign_b,
+        nbr_idx_a=ia,
+        nbr_val_a=va,
+        nbr_idx_b=ib,
+        nbr_val_b=vb,
         eri_t=val(eri_t),
         hdiag=hd,
         eri_chol=None if eri_chol is None else torch.as_tensor(eri_chol, device=device),

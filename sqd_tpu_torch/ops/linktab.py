@@ -1,10 +1,13 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """Excitation tables for the same-spin 2-RDMs (port of ``sqd_tpu.ops.linktab``).
 
-For a fixed orbital pair the map ``|I> -> a_w a_u |I>`` is injective on a
-string set, so the two-hole operator ``F[(u,w)] = a_w a_u c`` is a dense
-per-pair gather table over the set of reachable (nelec-2)-electron strings.
-The single-excitation tables come from :mod:`sqd_tpu_torch.native`.
+For a fixed orbital pair ``(p, q)`` the single-excitation map
+``|I> -> a+_p a_q |I>`` is injective on a string set, so ``E_pq`` is a dense
+per-pair gather table: ``(E_pq v)[J] = sign[pq, J] * v[src[pq, J]]``.  The same
+holds for the two-hole operator ``F[(u,w)] = a_w a_u c`` over the set of
+reachable (nelec-2)-electron strings.  :func:`build_gather_tables` builds the
+single-excitation tables on a device (``sqd_tpu``'s ``tables_backend="device"``);
+the default build is the host one of :func:`sqd_tpu_torch.native.gather_tables`.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.device import checked_device
 from . import bitpack
 
 __all__ = ["build_desdes_tables", "build_gather_tables", "occupancy_matrix", "pair_index_arrays"]
@@ -39,10 +43,70 @@ def pair_index_arrays(norb: int):
     }
 
 
-def build_gather_tables(*args, **kwargs):
-    """The device build of the gather tables (``sqd_tpu.ops.linktab.build_gather_tables``):
-    not ported yet; the tables come from :func:`sqd_tpu_torch.native.gather_tables`."""
-    raise NotImplementedError("build_gather_tables is not ported yet; see ROADMAP.md")
+# Device bytes one pair batch of the gather-table build may hold: the pair's
+# candidate strings, the binary search's lo, hi, mid, gathered row and query,
+# and the popcount temporaries, about (6 + 3 W) int64 values per string.
+GATHER_BATCH_BYTES = 1 << 30
+
+
+def _pair_words(consts, key: str, device) -> torch.Tensor:
+    """One of :func:`pair_index_arrays`' word tables as ``(npair, 1, W)`` int64."""
+    return bitpack.to_device_words(consts[key], device)[:, None, :]
+
+
+def build_gather_tables(strs_sorted, norb: int, *, device="cuda"):
+    """Build the ``(src, sign)`` single-excitation gather tables on ``device``.
+
+    The port of ``sqd_tpu.ops.linktab.build_gather_tables``, which maps one
+    jitted function over the pairs; here the pairs go in batches within
+    ``GATHER_BATCH_BYTES``.
+
+    Args:
+        strs_sorted: ``(n, W)`` packed CI strings (uint32 NumPy or an int64
+            word tensor), sorted ascending, unique, all of one Hamming weight.
+        norb: number of spatial orbitals.
+
+    Returns:
+        ``src``: ``(norb**2, n) int64`` — the index ``I`` with
+        ``a+_p a_q |I> = sign * |J>``; clamped to 0 where the excitation
+        leaves the set (``sqd_tpu`` leaves it unclamped there, the native
+        build clamps).
+        ``sign``: ``(norb**2, n) int8`` — the fermionic phase, 0 where invalid.
+    """
+    device = checked_device(device)
+    strs = bitpack.to_device_words(strs_sorted, device)
+    n, w = strs.shape
+    npair = norb * norb
+    src = torch.zeros((npair, n), dtype=torch.int64, device=device)
+    sign = torch.zeros((npair, n), dtype=torch.int8, device=device)
+    if n == 0:
+        return src, sign
+    consts = pair_index_arrays(norb)
+    bit_p, bit_q = _pair_words(consts, "bit_p", device), _pair_words(consts, "bit_q", device)
+    below_p = _pair_words(consts, "below_p", device)
+    below_q = _pair_words(consts, "below_q", device)
+    q_lt_p = torch.as_tensor(consts["q_lt_p"], device=device)[:, None]  # (npair, 1)
+    is_diag = torch.as_tensor(consts["is_diag"], device=device)[:, None]
+    rows = torch.arange(n, device=device)
+    batch = max(1, GATHER_BATCH_BYTES // (n * (6 + 3 * w) * 8))
+    for lo in range(0, npair, batch):
+        sl = slice(lo, min(lo + batch, npair))
+        has_p = bitpack.torch_popcount_rows(strs & bit_p[sl]) > 0  # (P, n)
+        has_q = bitpack.torch_popcount_rows(strs & bit_q[sl]) > 0
+        # diagonal pair (p == q): I = J, valid where p is occupied;
+        # off-diagonal: valid iff p in J and q not in J, I = J ^ p ^ q
+        i_cand = strs ^ bit_p[sl] ^ bit_q[sl]  # (P, n, W)
+        found = bitpack.torch_find_packed(strs, i_cand.reshape(-1, w)).reshape(has_p.shape)
+        # phase on I: remove q (parity below q in I), then add p (parity
+        # below p in I - q)
+        s1 = bitpack.torch_popcount_rows(i_cand & below_q[sl])
+        s2 = bitpack.torch_popcount_rows(i_cand & below_p[sl]) - q_lt_p[sl]
+        diag = is_diag[sl]
+        ok = torch.where(diag, has_p, has_p & ~has_q & (found >= 0))
+        src[sl] = torch.where(ok, torch.where(diag, rows, found), 0)
+        sign[sl] = torch.where(ok, torch.where(diag, 1, 1 - 2 * ((s1 + s2) & 1)), 0).to(
+            torch.int8)
+    return src, sign
 
 
 def occupancy_matrix(strs: torch.Tensor, norb: int) -> torch.Tensor:

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from sqd_tpu_torch import configuration_recovery, fermion, qubit, subsampling
-from sqd_tpu_torch.ops import pauli_proj
+from sqd_tpu_torch.ops import hamiltonian, linktab, pauli_proj
 from sqd_tpu_torch.primitives import BitArray, SparsePauliOp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +44,9 @@ def test_import_pulls_in_no_jax():
     assert len(names) >= 20  # the package, its subpackages and modules
     for module in ("counts", "primitives", "subsampling", "configuration_recovery",
                    "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device",
-                   "qubit", "ops.pauli_proj", "models.heisenberg", "ops.dense_df"):
+                   "qubit", "ops.pauli_proj", "models.heisenberg", "ops.dense_df",
+                   "chem", "chem.integrals", "chem.scf", "chem.scf_open", "chem.active_space",
+                   "chem.basis_data", "chem.sto_ng"):
         assert f"sqd_tpu_torch.{module}" in names
     assert bad == "[]"
 
@@ -103,6 +105,8 @@ ENTRY_POINTS = {
     "build_projected_operator": lambda: pauli_proj.build_projected_operator(
         _PACKED, _HAM.paulis, _HAM.coeffs),
     "pauli_term_table": lambda: pauli_proj.pauli_term_table(_PACKED, _HAM.paulis[0]),
+    "build_gather_tables": lambda: linktab.build_gather_tables(_PACKED, 4),
+    "build_samespin_tables": lambda: hamiltonian.build_samespin_tables(_PACKED, _H1, _ERI, 4, 3),
 }
 
 

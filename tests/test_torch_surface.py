@@ -1,7 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """The port's public surface is ``sqd_tpu``'s: every name the JAX package
 re-exports, and every name in the ``__all__`` of each module the port has a
-counterpart of, resolves in ``sqd_tpu_torch``; what is not ported yet raises
+counterpart of, resolves in ``sqd_tpu_torch``; what is left out raises
 ``NotImplementedError`` when called."""
 
 import ast
@@ -59,7 +59,7 @@ def test_surface_is_wide_enough_to_mean_something():
     ours = {pair[0] for pair in MODULE_PAIRS}
     assert {"sqd_tpu_torch.fermion", "sqd_tpu_torch.qubit", "sqd_tpu_torch.ops.dense_df",
             "sqd_tpu_torch.ops.davidson", "sqd_tpu_torch.ops.linktab",
-            "sqd_tpu_torch.native"} <= ours
+            "sqd_tpu_torch.native", "sqd_tpu_torch.chem", "sqd_tpu_torch.chem.scf_open"} <= ours
 
 
 @pytest.mark.parametrize("name", PACKAGE_NAMES)
@@ -79,8 +79,6 @@ def test_module_all_resolves(ours, theirs):
 
 
 UNPORTED = {
-    "linktab.build_gather_tables": linktab.build_gather_tables,
-    "hamiltonian.build_samespin_tables": hamiltonian.build_samespin_tables,
     "davidson.davidson_ground_state_segmented": davidson.davidson_ground_state_segmented,
 }
 
@@ -89,6 +87,43 @@ UNPORTED = {
 def test_unported_name_raises(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         UNPORTED[name]("anything", key="word")
+
+
+def _integrals(norb):
+    rng = np.random.default_rng(norb)
+    h1 = rng.normal(size=(norb, norb))
+    eri = rng.normal(size=(norb,) * 4)
+    eri = eri + eri.transpose(1, 0, 3, 2) + eri.transpose(2, 3, 0, 1) + eri.transpose(3, 2, 1, 0)
+    return h1 + h1.T, eri
+
+
+def _device_gather(strs, norb):
+    return linktab.build_gather_tables(strs, norb, device="cpu")
+
+
+def _device_samespin(strs, norb):
+    return hamiltonian.build_samespin_tables(strs, *_integrals(norb), norb, 3, device="cpu")
+
+
+def _native_samespin(strs, norb):
+    return native.samespin_tables(strs, *_integrals(norb), norb, 3)
+
+
+FORMERLY_UNPORTED = {
+    "linktab.build_gather_tables": (_device_gather, native.gather_tables),
+    "hamiltonian.build_samespin_tables": (_device_samespin, _native_samespin),
+}
+
+
+@pytest.mark.parametrize("name", list(FORMERLY_UNPORTED))
+def test_device_table_builder_is_ported(name):
+    """The two device builders that were stubs compute, on the CPU, the
+    tables of the native build (their ``sqd_tpu`` comparison is in
+    ``tests/test_torch_device_tables.py``)."""
+    ours, native_build = FORMERLY_UNPORTED[name]
+    strs = bitpack.pack_ints(np.array([0b000111, 0b001011, 0b010101, 0b100011, 0b110001]), 6)
+    for got, want in zip(ours(strs, 6), native_build(strs, 6)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-14)
 
 
 def test_small_ported_names_match():

@@ -156,7 +156,26 @@ Phases, each printing one line; any failure exits non-zero:
    (d shells, native) within 1e-10 relative and its ROHF after 80 cycles
    within 1e-6 Ha (it does not converge; the gap is printed), then
    ``solve_sci`` on the card over its whole CAS(6o,(4,2)) sector (225
-   determinants) within 1e-7 Ha of :func:`host_f64_energy` of its vector.
+   determinants) within 1e-7 Ha of :func:`host_f64_energy` of its vector;
+13. sharded solvers (``sqd_tpu_torch.parallel``) — first the kernel against
+   its plain version on operands restricted to rank 0 of 2's rows at the
+   CASCI (2192 output rows of a 4384-row ``c``, sources past the output
+   range), timed beside its bound; (a) world size 1 over NCCL, joined by
+   ``init_distributed`` from the ``SQD_TPU_*`` variables: phase 6's
+   iteration-0 batches through ``solve_sci_batch_sharded`` within 1e-7 Ha of
+   phase 6's energies and of the ``sqd_tpu`` record, phase 6's loop with
+   ``sci_solver=solve_sci_batch_sharded`` (iteration 0 gives ``sqd_tpu``'s
+   strings), the headline by the pair-, row- and grid-sharded solves
+   (``HEADLINE_SHARDED``) within 1e-7 Ha of phase 5 with their seconds
+   beside a warm ``solve_sci``'s (the kernel launched by the row shards
+   only), the full CASCI by ``solve_sci_rowsharded`` (``CASCI_ROWSHARDED``)
+   within 2e-6 Ha of the published energy and 1e-7 Ha of phase 7's, with its
+   peak memory and launches, and config 5 by ``solve_sci_dfsharded``
+   (``CONFIG5_SOLVER``) within 1e-6 Ha of phase 10's dense route; (c)
+   ``dryrun_multichip`` on every card (NCCL) prints its line; (b) the same
+   dry run on two ranks both on the one card over gloo (every mode: gloo
+   serves their collectives for CUDA tensors,
+   ``probes/torch_gloo_cuda_collectives.py``), each within 1e-8 Ha of (c)'s.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -243,6 +262,14 @@ FE2S2_ROHF = {"spin": 4, "max_cycle": 80}
 TOL_CHEM = 1e-8  # Ha: RHF, ROHF, UHF and ecore against the record
 TOL_FE2S2_ROHF = 1e-6  # Ha: an unconverged ROHF after 80 cycles
 TOL_DIGEST = 1e-10  # relative, the [2Fe-2S] integral digests
+# phase 13: the sharded solvers (sqd_tpu_torch.parallel).  The f32 Davidsons
+# of the single-solve modes stop at tol 1e-5 or their iteration cap, near the
+# f32 floor at these shapes, so the energy's error (residual^2 / gap) stays
+# far below the gates
+HEADLINE_SHARDED = {"tol": 1e-5, "max_cycle": 100}
+CASCI_ROWSHARDED = {"tol": 1e-5, "max_cycle": 80}
+TOL_DF_SHARDED = 1e-6  # Ha, the factor-sharded config 5 against phase 10's dense route
+TOL_WORLDS = 1e-8  # Ha, (b)'s two ranks against (c)'s one
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
@@ -483,8 +510,9 @@ def event_ms(fn, calls=10) -> float:
     return start.elapsed_time(stop) / calls
 
 
-def check_kernel(name, ham, rng, tiles=None) -> float:
-    """The kernel against its plain version on random amplitudes; returns
+def check_kernel(name, ham, rng, tiles=None, c_rows=None) -> float:
+    """The kernel against its plain version on random amplitudes (``c_rows``
+    rows of them for an operator restricted to some output rows); returns
     the largest difference and fails past ``TOL_KERNEL * max(|plain|, 1)``."""
     import torch
 
@@ -495,7 +523,8 @@ def check_kernel(name, ham, rng, tiles=None) -> float:
     npair = ops.eri.shape[0]
     if tiles is None:
         tiles = cross_spin.plan(n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
-    c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=ham.src_a.device)
+    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=torch.float32,
+                        device=ham.src_a.device)
     out = cross_spin.cross_spin_matvec(c, ops, tiles=tiles)
     sync()
     ref = cross_spin.cross_spin_plain(c, ops)
@@ -503,7 +532,8 @@ def check_kernel(name, ham, rng, tiles=None) -> float:
     bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
     finite = bool(torch.isfinite(out).all())
     empty = (int((ops.ka_n == 0).sum()), int((ops.kb_n == 0).sum()))
-    print(f"kernel vs plain [{name}] shape {(m, n)} npair {npair} ka {ops.ka_pq.shape[1]} "
+    print(f"kernel vs plain [{name}] shape {(m, n)} of c {tuple(c.shape)} npair {npair} "
+          f"ka {ops.ka_pq.shape[1]} "
           f"kb {ops.kb_rs.shape[1]}, empty rows/cols {empty}, tiles (cols, rs) {tiles}: "
           f"{-(-n // tiles[0])} k x {-(-npair // tiles[1])} rs: "
           f"max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
@@ -512,17 +542,20 @@ def check_kernel(name, ham, rng, tiles=None) -> float:
     return err
 
 
-def time_kernel(label, ham, rng, smi, rounds=10, calls=10) -> dict:
+def time_kernel(label, ham, rng, smi, rounds=10, calls=10, c_rows=None) -> dict:
     """Median per-call times of the kernel and its plain version (in turns:
-    plain, kernel, kernel, plain) and the kernel's bound, at ``ham``'s shape."""
+    plain, kernel, kernel, plain) and the kernel's bound, at ``ham``'s shape
+    (with ``c_rows`` rows of amplitudes for an operator restricted to some
+    output rows)."""
     import numpy as np
     import torch
 
     from sqd_tpu_torch.ops import cross_spin
 
     ops = ham.cross_spin_operands()
-    c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float32, device=ham.src_a.device)
     m, n = ham.shape
+    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=torch.float32,
+                        device=ham.src_a.device)
     npair = ops.eri.shape[0]
 
     def run_kernel():
@@ -542,12 +575,13 @@ def time_kernel(label, ham, rng, smi, rounds=10, calls=10) -> dict:
     # the least time for the same work: every valid (alpha pair, beta pair)
     # couple is one FMA; every input is read once and the output written once
     flops = 2.0 * float(ops.ka_n.sum()) * float(ops.kb_n.sum())
-    moved = [c, c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
+    moved = [c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
              ops.kb_n, ops.kb_rs, ops.kb_src, ops.kb_sgn, ops.eri]
-    nbytes = float(sum(t.numel() * t.element_size() for t in moved))
+    nbytes = float(sum(t.numel() * t.element_size() for t in moved)) + 4.0 * m * n
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"timing [{label}] at {(m, n)}, npair {npair} ({smi}): kernel {t_kernel:.4f} ms, "
+    print(f"timing [{label}] at {(m, n)} (c {tuple(c.shape)}), npair {npair} ({smi}): "
+          f"kernel {t_kernel:.4f} ms, "
           f"plain {t_plain:.4f} ms (per call: medians of {2 * rounds} rounds of {calls} calls, "
           f"CUDA events)", flush=True)
     print(f"bound [{label}]: {flops / 1e9:.4f} GFLOP at 67 TFLOP/s = {t_ops:.5f} ms, "
@@ -769,7 +803,7 @@ def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solv
 
 def sqd_loop_phase(dev, smi, h1, eri, ecore):
     """Phase 6: the SQD loop at full width.  Returns the kernel's launches in
-    it and its best result."""
+    it, its best result, iteration 0's batch results and its seconds."""
     import numpy as np
 
     from sqd_tpu_torch.ops import bitpack
@@ -779,7 +813,7 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
     with open(LOOP_DATA) as f:
         recorded = json.load(f)
     norb, nelec = 16, (5, 5)
-    probe, best, _, launches, checks = run_loop(
+    probe, best, t_loop, launches, checks = run_loop(
         dev, smi, "sqd loop", h1, eri, ecore, norb, nelec,
         BitArray.from_bool_array(loop_shots()), LOOP_SETTINGS, {}, recorded)
     it0_diff = max(abs(r.energy - b["energy"])
@@ -807,7 +841,7 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
     for what, ok in checks.items():
         if not ok:
             fail(f"sqd loop: {what}")
-    return launches, best
+    return launches, best, probe.history[0], t_loop
 
 
 def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]:
@@ -1207,11 +1241,11 @@ def qubit_k_phase(dev, smi) -> None:
                 fail(f"qubit k = {k} [{name}]: {what}")
 
 
-def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float]:
+def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
     """Phase 10: BASELINE config 5 by the gather route and the dense
     density-fitted route.  Returns the kernel's launches in the gather solve,
-    its times at this shape and its largest difference from the plain
-    version."""
+    its times at this shape, its largest difference from the plain version
+    and the dense route's energy."""
     import dataclasses
 
     import numpy as np
@@ -1420,7 +1454,7 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float]:
         fail("config 5: the two routes' energies differ")
     if results["dense_df"][1] != 0 or results["gather"][1] == 0:
         fail("config 5: the kernel must launch in the gather solve and not in the dense one")
-    return results["gather"][1], timing, err
+    return results["gather"][1], timing, err, results["dense_df"][0].energy
 
 
 TOL_OO_ENERGY = 1e-6  # Ha, each outer iteration's solve against sqd_tpu's record
@@ -2015,6 +2049,170 @@ def open_shell_phase(dev, smi) -> None:
             fail(f"open shells: {what}")
 
 
+def parallel_phase(dev, smi, h1, eri, ecore, it0, t_loop, strs_a, strs_b, e_headline, e_casci,
+                   e_dense5, rng) -> tuple[int, dict]:
+    """Phase 13: the sharded solvers of ``sqd_tpu_torch.parallel``.  Returns
+    the kernel's launches in (a) and its row-restricted case's times."""
+    import dataclasses
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from sqd_tpu_torch import fermion, parallel
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import hamiltonian as ham_ops
+    from sqd_tpu_torch.parallel.dryrun import MODES, _free_port, dryrun_multichip
+    from sqd_tpu_torch.primitives import BitArray
+
+    norb, nelec = 16, (5, 5)
+    with open(LOOP_DATA) as f:
+        recorded = json.load(f)
+
+    # -- the kernel on operands restricted to rank 0 of 2's rows at the CASCI:
+    # 2192 output rows of a 4384-row c, sources past the output range
+    t13 = time.perf_counter()
+    casci_strs = all_strings(norb, nelec[0])
+    casci_packed = bitpack.pack_ints(casci_strs, norb)
+    ham32 = ham_ops.build_sci_hamiltonian(casci_packed, casci_packed, h1, eri, norb, nelec,
+                                          device=dev, dtype=torch.float32, pad_to=(4384, 4384))
+    m = ham32.shape[0]
+    rows = slice(0, m // 2)
+    shard = dataclasses.replace(ham32, src_a=ham32.src_a[:, rows], sign_a=ham32.sign_a[:, rows],
+                                nbr_idx_a=ham32.nbr_idx_a[rows], nbr_val_a=ham32.nbr_val_a[rows],
+                                hdiag=ham32.hdiag[rows])
+    if not shard.cross_spin_operands().src_rows > m // 2:
+        fail("parallel: the row-restricted operands read no row past their output rows")
+    err = check_kernel("row_restricted", shard, rng, c_rows=m)
+    timing = time_kernel("row_restricted", shard, rng, smi, rounds=3, calls=3, c_rows=m)
+    timing["max_abs_err"] = err
+    del ham32, shard
+    torch.cuda.empty_cache()
+
+    # -- (a) world size 1 over NCCL, wired through init_distributed ----------
+    os.environ.update({"SQD_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                       "SQD_TPU_NUM_PROCESSES": "1", "SQD_TPU_PROCESS_ID": "0"})
+    if not parallel.init_distributed():
+        fail("parallel: init_distributed did not join the process group")
+    if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+        fail(f"parallel: {dist.get_backend()} at world size {dist.get_world_size()}")
+    launches_a = 0
+
+    def run(fn):
+        nonlocal launches_a
+        cross_spin.cross_spin_matvec.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        launches = cross_spin.cross_spin_matvec.launches
+        launches_a += launches
+        return out, time.perf_counter() - t0, launches, torch.cuda.max_memory_allocated() / 1e9
+
+    checks = {}
+    batches = [(r.sci_state.ci_strs_a, r.sci_state.ci_strs_b) for r in it0]
+    res, secs, launches, _ = run(lambda: parallel.solve_sci_batch_sharded(
+        batches, h1, eri, norb, nelec, device=dev))
+    d_batch = max(abs(r.energy - b.energy) for r, b in zip(res, it0))
+    d_record = max(abs(r.energy - b["energy"]) for r, b in zip(res, recorded["batches"]))
+    print(f"parallel (a) batch-sharded: {len(res)} batches {[r.sci_state.amplitudes.shape for r in res]}"
+          f" in {secs:.3f} s, kernel launches {launches}; max |dE| against solve_sci_batch "
+          f"{d_batch:.3e}, against the sqd_tpu record {d_record:.3e} Ha ({smi})", flush=True)
+    checks["batch-sharded within 1e-7 Ha of solve_sci_batch and the record"] = (
+        len(res) == len(it0) and d_batch < TOL_ENERGY and d_record < TOL_ENERGY)
+    checks["batch-sharded launched the kernel"] = launches > 0
+
+    history = []
+    best, secs, launches, _ = run(lambda: fermion.diagonalize_fermionic_hamiltonian(
+        h1, eri, BitArray.from_bool_array(loop_shots()), norb=norb, nelec=nelec,
+        callback=history.append, device=dev,
+        sci_solver=functools.partial(parallel.solve_sci_batch_sharded, device=dev),
+        **LOOP_SETTINGS))
+    it0_strings = [
+        (strings_digest(r.sci_state.ci_strs_a), strings_digest(r.sci_state.ci_strs_b))
+        == (b["sha256_alpha"], b["sha256_beta"]) for r, b in zip(history[0], recorded["batches"])]
+    print(f"parallel (a) loop through the seam: {len(history)} iterations in {secs:.3f} s (phase 6 "
+          f"{t_loop:.3f} s), kernel launches {launches}, best energy {best.energy + ecore:.12f} "
+          f"Ha; iteration 0 vs sqd_tpu: strings {it0_strings}", flush=True)
+    checks["the loop's iteration 0 gives sqd_tpu's strings"] = (
+        len(history[0]) == len(recorded["batches"]) and all(it0_strings))
+
+    local, t_local, _, _ = run(lambda: fermion.solve_sci((strs_a, strs_b), h1, eri, norb, nelec,
+                                                         device=dev))
+    modes = {"pair (distributed)": parallel.solve_sci_distributed,
+             "row": parallel.solve_sci_rowsharded, "grid": parallel.solve_sci_gridsharded}
+    parts, mode_launches = [], {}
+    for label, solve in modes.items():
+        res, secs, mode_launches[label], peak = run(lambda: solve(
+            (strs_a, strs_b), h1, eri, norb, nelec, device=dev, **HEADLINE_SHARDED))
+        diff = abs(res.energy - e_headline)
+        parts.append(f"{label} {secs:.3f} s, |dE| {diff:.3e}, launches {mode_launches[label]}, "
+                     f"peak {peak:.2f} GB")
+        checks[f"headline {label} within 1e-7 Ha of phase 5"] = diff < TOL_ENERGY
+    # the row shards' f32 channel is the kernel; the pair and grid modes are torch ops
+    checks["headline: the kernel in the row-sharded solve only"] = (
+        mode_launches["row"] > 0 and mode_launches["pair (distributed)"] == 0
+        and mode_launches["grid"] == 0)
+    print(f"parallel (a) headline, 1000 x 1000 ({smi}): solve_sci {t_local:.3f} s (|dE| from "
+          f"phase 5 {abs(local.energy - e_headline):.3e}); " + "; ".join(parts), flush=True)
+
+    res, secs, launches, peak = run(lambda: parallel.solve_sci_rowsharded(
+        (casci_strs, casci_strs), h1, eri, norb, nelec, device=dev, **CASCI_ROWSHARDED))
+    e_total = res.energy + ecore
+    print(f"parallel (a) CASCI row-sharded, {len(casci_strs) ** 2} determinants: {secs:.3f} s, "
+          f"energy {e_total:.12f} Ha, |dE| published {abs(e_total - CASCI_ENERGY):.3e} (gate "
+          f"{TOL_CASCI:.0e}), phase 7 {abs(e_total - e_casci):.3e} (gate 1e-7); kernel launches "
+          f"{launches}, peak device memory {peak:.2f} GB ({smi})", flush=True)
+    checks["CASCI row-sharded within 2e-6 Ha of the published energy"] = (
+        abs(e_total - CASCI_ENERGY) < TOL_CASCI)
+    checks["CASCI row-sharded within 1e-7 Ha of phase 7"] = abs(e_total - e_casci) < TOL_ENERGY
+    checks["CASCI row-sharded launched the kernel"] = launches > 0
+    del res
+    torch.cuda.empty_cache()
+
+    c5_h1, c5_eri, c5_strs = config5_problem()
+    res, secs, launches, peak = run(lambda: parallel.solve_sci_dfsharded(
+        (c5_strs, c5_strs), c5_h1, c5_eri, CONFIG5["norb"], CONFIG5["nelec"], device=dev,
+        **CONFIG5_SOLVER))
+    diff = abs(res.energy - e_dense5)
+    print(f"parallel (a) config 5 factor-sharded: {secs:.3f} s, |dE| from phase 10's dense route "
+          f"{diff:.3e} (gate {TOL_DF_SHARDED:.0e}), kernel launches {launches}, peak device "
+          f"memory {peak:.2f} GB ({smi})", flush=True)
+    checks["config 5 factor-sharded within 1e-6 Ha of phase 10's dense route"] = (
+        diff < TOL_DF_SHARDED)
+    del res
+    dist.destroy_process_group()
+    for name in ("SQD_TPU_COORDINATOR", "SQD_TPU_NUM_PROCESSES", "SQD_TPU_PROCESS_ID"):
+        del os.environ[name]
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t13
+
+    # -- (c) the dry run on every card (NCCL); (b) two ranks on the one card (gloo)
+    t0 = time.perf_counter()
+    one = dryrun_multichip(torch.cuda.device_count())
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # every mode: gloo serves all their collectives for CUDA tensors in the
+    # card's torch 2.11 (probes/torch_gloo_cuda_collectives.py)
+    two = dryrun_multichip(2, backend="gloo")
+    t_b = time.perf_counter() - t0
+    diffs = {}
+    for key in ("local", *MODES):
+        ref = one[0][key][0] if key == "batch" else one[0][key]
+        diffs[key] = max(abs((r[key][0] if key == "batch" else r[key]) - ref) for r in two)
+    print(f"parallel (b) two ranks on {smi} over gloo against (c)'s one: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+          + f" Ha (gate {TOL_WORLDS:.0e}); (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s",
+          flush=True)
+    for key, diff in diffs.items():
+        checks[f"two ranks' {key} within 1e-8 Ha of one rank's"] = diff < TOL_WORLDS
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"parallel: {what}")
+    return launches_a, timing
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2211,7 +2409,7 @@ def main() -> None:
     compare_tables("headline", dev, smi, pa, pb, h1, eri, norb, nelec, pad_to=(1024, 1024))
 
     # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
-    loop_launches, loop_best = sqd_loop_phase(dev, smi, h1, eri, ecore)
+    loop_launches, loop_best, loop_it0, t_loop = sqd_loop_phase(dev, smi, h1, eri, ecore)
     casci_launches, casci, casci_err, e_casci = casci_phase(dev, smi, h1, eri, ecore, rng)
     ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
@@ -2225,7 +2423,7 @@ def main() -> None:
 
     # -- 10. BASELINE config 5 by the gather and the dense density-fitted route
     t0 = time.perf_counter()
-    config5_launches, config5, config5_err = dense_df_phase(dev, smi, rng)
+    config5_launches, config5, config5_err, e_dense5 = dense_df_phase(dev, smi, rng)
     print(f"config 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 11. the rest of the fermion API: orbital optimization, excited
@@ -2254,6 +2452,15 @@ def main() -> None:
     print(f"from geometry: {t12[-1] - t12[0]:.1f} s: (a) {t12[1] - t12[0]:.1f} s, (c) "
           f"{t12[2] - t12[1]:.1f} s; the script {time.perf_counter() - T_START:.1f} s", flush=True)
 
+    # -- 13. the sharded solvers: world size 1 over NCCL, two ranks on the one
+    # card over gloo, the dry run
+    t0 = time.perf_counter()
+    parallel_launches, row_restricted = parallel_phase(
+        dev, smi, h1, eri, ecore, loop_it0, t_loop, strs_a, strs_b, result.energy, e_casci,
+        e_dense5, rng)
+    print(f"sharded solvers: {time.perf_counter() - t0:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
@@ -2267,13 +2474,15 @@ def main() -> None:
         "launches_orbital_optimization": oo_launches,
         "launches_resumed_loop": resume_launches,
         "launches_from_geometry": geometry_launches,
-        "max_abs_err": max(*errs.values(), casci_err, config5_err),
+        "launches_sharded_solvers": parallel_launches,
+        "max_abs_err": max(*errs.values(), casci_err, config5_err, row_restricted["max_abs_err"]),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this contraction
-        "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5},
+        "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5,
+                      "row_restricted": row_restricted},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -45,6 +45,11 @@ ported slices, module for module under the same names:
   (``csrc/sqdcore.cpp``, copied from ``sqd_tpu``), bound with ctypes.
 * :mod:`sqd_tpu_torch.convert` — an ``sqd_tpu`` operator's fields (fermionic
   or Pauli) as the port's operator.
+* :mod:`sqd_tpu_torch.parallel` — the sharded solvers on ``torch.distributed``
+  (one process per rank): batches dealt over the ranks, and one solve with
+  the pair axis, the alpha rows, the amplitude grid or the density-fitting
+  factor sharded; :mod:`sqd_tpu_torch.parallel.dryrun` runs them on several
+  ranks.
 
 The CPU tests (``python -m pytest tests/test_torch_*.py``) hold each module
 against ``sqd_tpu``; ``python3 chip_smoke.py`` checks the port on the card,
@@ -53,11 +58,9 @@ its phase 9 the qubit path (``tools/make_qubit_data.py`` writes its
 augmentation and a resumed loop (``tools/make_oo_data.py`` and
 ``tools/make_excited_data.py``).
 
-The package re-exports the names ``sqd_tpu`` re-exports.  Three functions
-still raise ``NotImplementedError``: ``ops.linktab.build_gather_tables`` and
-``ops.hamiltonian.build_samespin_tables`` (the device table builds, not
-ported yet) and ``ops.davidson.davidson_ground_state_segmented`` (a TPU
-workaround, left out by design).  Nothing here imports JAX or
+The package re-exports the names ``sqd_tpu`` re-exports.  One function
+raises ``NotImplementedError``: ``ops.davidson.davidson_ground_state_segmented``
+(a TPU workaround, left out by design).  Nothing here imports JAX or
 ``sqd_tpu``, and importing builds no native code and touches no device.  Every
 public entry point runs on the card (``device="cuda"``) unless the caller
 passes another device.

@@ -42,6 +42,7 @@ FIELDS = (
 )
 OPTIONAL_FIELDS = ("eri_chol",)
 _INDEX_FIELDS = ("src_a", "src_b", "nbr_idx_a", "nbr_idx_b")
+_SOURCE_FIELDS = ("src_a", "src_b")
 _SIGN_FIELDS = ("sign_a", "sign_b")
 
 
@@ -58,8 +59,11 @@ def hamiltonian_from_numpy(
     """The port's :class:`SCIHamiltonian` from ``sqd_tpu`` operator fields.
 
     Index tables become int64 and signs int8; the float payload keeps its
-    dtype.  ``FIELDS`` are required and ``OPTIONAL_FIELDS`` may be given;
-    missing or unknown fields raise ``KeyError``.
+    dtype.  A negative gather source (``sqd_tpu``'s device table build leaves
+    invalid entries at -1 with sign 0, which JAX's gathers clamp) points at
+    row 0, as the native build and the port's device build clamp it.
+    ``FIELDS`` are required and ``OPTIONAL_FIELDS`` may be given; missing or
+    unknown fields raise ``KeyError``.
     """
     if not set(FIELDS) <= set(fields) <= set(FIELDS + OPTIONAL_FIELDS):
         raise KeyError(f"expected fields {sorted(FIELDS)} and optionally "
@@ -69,6 +73,8 @@ def hamiltonian_from_numpy(
         arr = np.asarray(fields[name])
         if name in _INDEX_FIELDS:
             arr = arr.astype(np.int64)
+            if name in _SOURCE_FIELDS:
+                arr = np.maximum(arr, 0)
         elif name in _SIGN_FIELDS:
             arr = arr.astype(np.int8)
         else:

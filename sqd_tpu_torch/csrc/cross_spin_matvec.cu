@@ -208,7 +208,9 @@ cross_spin_kernel(const float* __restrict__ c, int n,
 }  // namespace
 
 // All pointers are device pointers:
-//   c (m, n) f32, C-contiguous;
+//   c (rows, n) f32, C-contiguous, with rows > every ka_src: m is the count of
+//     output rows, and ka_src may point past them (a row shard of an operator
+//     reads source rows anywhere in the whole c);
 //   ka_n (m,) i32; ka_pq, ka_src (m, ka) i32 and ka_sgn (m, ka) f32, C-contiguous;
 //   kb_n (n,) i32; kb_rs, kb_src i32 and kb_sgn f32, entry-major (kb, n);
 //   eri_t (npair, npair) f32; out (m, n) f32, fully written.

@@ -383,9 +383,10 @@ def _scaled_tol(hd_flat: torch.Tensor, tol: float) -> float:
     return max(tol, 32 * eps * max(1.0, scale))
 
 
-def _result_of(ham64, vec_flat, strs, packed, nelec, with_rdms=True) -> SCIResult:
+def _result_of(ham64, vec_flat, strs, packed, nelec, with_rdms=True, energy=None) -> SCIResult:
     """The :class:`SCIResult` of a padded solver vector: normalised in f64,
-    its f64 RDMs and occupancies, and its bare-H energy."""
+    its f64 RDMs and occupancies, and its bare-H energy (``energy`` when the
+    caller computed it)."""
     mp, np_ = ham64.shape
     vec_pad = vec_flat.to(torch.float64).reshape(mp, np_)
     vec_pad = vec_pad / torch.linalg.norm(vec_pad)
@@ -398,7 +399,8 @@ def _result_of(ham64, vec_flat, strs, packed, nelec, with_rdms=True) -> SCIResul
     dm1a, dm1b = rdms["dm1a"].cpu().numpy(), rdms["dm1b"].cpu().numpy()
     dm2 = rdms["dm2"].cpu().numpy() if with_rdms else None
     occupancies = (np.diagonal(dm1a).copy(), np.diagonal(dm1b).copy())
-    energy = expectation_value(ham64, vec_pad.reshape(-1), spin_penalty=False)
+    if energy is None:
+        energy = expectation_value(ham64, vec_pad.reshape(-1), spin_penalty=False)
     m, n = len(strs[0]), len(strs[1])
     sci_state = SCIState(
         amplitudes=vec_pad[:m, :n].cpu().numpy(),

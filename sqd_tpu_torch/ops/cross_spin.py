@@ -17,7 +17,10 @@ on Hopper and how its design answers that.
 * :func:`prepare` — the operands in the forms both want, built once per
   operator: the valid pairs of every alpha row and of every beta column
   compacted (the TPU kernel re-derived the alpha side inside every call and
-  relied on XLA to hoist it), the beta side sorted by source.
+  relied on XLA to hoist it), the beta side sorted by source.  The alpha
+  tables may cover only some rows of ``c``: a row shard's tables give its
+  own output rows and read source rows anywhere in ``c``
+  (:mod:`sqd_tpu_torch.parallel.row_sharded`).
 * :func:`row_stride` and :func:`plan` — the kernel's shared-memory layout:
   the row stride, and how many columns of ``c`` and pair rows of ``A`` a
   block stages at once.
@@ -66,8 +69,10 @@ class CrossSpinOperands:
     """One operator's cross-spin tables, on one device.
 
     Plain-version fields: ``src_a``/``src_b`` int64 ``(npair, M|N)``,
-    ``sign_a``/``sign_b`` f32, ``eri`` f32 ``(npair, npair)``.  Kernel fields,
-    zero past each count:
+    ``sign_a``/``sign_b`` f32, ``eri`` f32 ``(npair, npair)``.  ``M`` is the
+    count of output rows; the alpha sources index the rows of an amplitude
+    matrix with at least ``src_rows`` rows (``M`` itself for a whole
+    operator, more for a row shard).  Kernel fields, zero past each count:
 
     * ``ka_n (M,)`` int32 valid-pair counts of the alpha rows, and
       ``ka_pq``/``ka_src`` int32 and ``ka_sgn`` f32 ``(M, ka)``: pair index,
@@ -92,9 +97,11 @@ class CrossSpinOperands:
     kb_rs: torch.Tensor
     kb_src: torch.Tensor
     kb_sgn: torch.Tensor
+    src_rows: int
 
     @property
     def shape(self) -> tuple[int, int]:
+        """``(output rows, columns)``."""
         return self.src_a.shape[1], self.src_b.shape[1]
 
 
@@ -120,7 +127,10 @@ def _compact(src, sign, key):
 
 def prepare(src_a, sign_a, src_b, sign_b, eri) -> CrossSpinOperands:
     """Build the operands from clamped gather tables and the ``(npair, npair)``
-    coefficient matrix (penalty already folded in), on their device."""
+    coefficient matrix (penalty already folded in), on their device.
+
+    ``src_a``/``sign_a`` hold one column per output row; their sources may
+    point past those rows (a row shard's tables index the whole ``c``)."""
     # alpha: valid pairs first, in ascending pq order (stable sort)
     ka_n, ka_pq, ka_src, ka_sgn = _compact(src_a, sign_a, (sign_a == 0).to(torch.uint8))
     # beta: valid pairs by source, so a tile of sources is a contiguous run
@@ -141,6 +151,7 @@ def prepare(src_a, sign_a, src_b, sign_b, eri) -> CrossSpinOperands:
         kb_rs=kb_rs.contiguous().T,
         kb_src=kb_src.contiguous().T,
         kb_sgn=kb_sgn.contiguous().T,
+        src_rows=max(int(src_a.max()) + 1 if src_a.numel() else 0, src_a.shape[1]),
     )
 
 
@@ -151,7 +162,8 @@ def cross_spin_plain(c: torch.Tensor, ops: CrossSpinOperands) -> torch.Tensor:
     are built for at most ``PLAIN_CHUNK_BYTES`` at a time.
     """
     npair = ops.eri.shape[0]
-    m, n = c.shape
+    _check_rows(c, ops)
+    m, n = ops.shape
     c = c.to(torch.float32)
     step = max(1, min(m, PLAIN_CHUNK_BYTES // (4 * npair * n)))
     out = torch.empty((m, n), dtype=torch.float32, device=c.device)
@@ -165,6 +177,12 @@ def cross_spin_plain(c: torch.Tensor, ops: CrossSpinOperands) -> torch.Tensor:
         picked = torch.gather(g, 2, ops.src_b[:, None, :].expand(npair, r, n))
         out[rows] = (ops.sign_b[:, None, :] * picked).sum(dim=0)
     return out
+
+
+def _check_rows(c: torch.Tensor, ops: CrossSpinOperands) -> None:
+    if c.dim() != 2 or c.shape[1] != ops.shape[1] or c.shape[0] < ops.src_rows:
+        raise ValueError(f"amplitudes of shape {tuple(c.shape)} for operator {ops.shape} "
+                         f"reading {ops.src_rows} rows")
 
 
 def row_stride(ka: int) -> int:
@@ -206,10 +224,12 @@ def _kernel_library() -> ctypes.CDLL:
 def cross_spin_matvec(
     c: torch.Tensor, ops: CrossSpinOperands, *, tiles: tuple[int, int] | None = None
 ) -> torch.Tensor:
-    """``sigma (M, N) f32`` of the cross-spin channel for amplitudes ``c (M, N)``.
+    """``sigma (M, N) f32`` of the cross-spin channel for amplitudes ``c``.
 
-    CPU tensors take :func:`cross_spin_plain`; CUDA tensors the hand-written
-    kernel (counted in ``cross_spin_matvec.launches``).  ``tiles`` overrides
+    ``M`` is the operands' output rows; ``c`` has their ``N`` columns and at
+    least ``ops.src_rows`` rows (``M`` for a whole operator).  CPU tensors
+    take :func:`cross_spin_plain`; CUDA tensors the hand-written kernel
+    (counted in ``cross_spin_matvec.launches``).  ``tiles`` overrides
     the kernel's ``(tile_cols, tile_rs)`` of :func:`plan`; the result is the
     same function for any tiles that fit.
     """
@@ -219,8 +239,7 @@ def cross_spin_matvec(
         raise ValueError(f"cross_spin_matvec takes CPU or CUDA tensors, got {c.device}")
     if c.dtype != torch.float32:
         raise TypeError(f"the cross-spin kernel computes in f32, got {c.dtype}")
-    if tuple(c.shape) != ops.shape:
-        raise ValueError(f"amplitudes of shape {tuple(c.shape)} for operator {ops.shape}")
+    _check_rows(c, ops)
     if not c.is_contiguous():
         raise ValueError("the cross-spin kernel needs C-contiguous amplitudes")
     kb_tables = (ops.kb_rs.T, ops.kb_src.T, ops.kb_sgn.T)  # entry-major
@@ -228,7 +247,7 @@ def cross_spin_matvec(
         if t.device != c.device or not t.is_contiguous():
             raise ValueError("cross-spin operands must be laid out as prepare() makes them, "
                              "on the amplitudes' device")
-    m, n = c.shape
+    m, n = ops.shape  # the kernel's grid is the output rows
     npair, ka = ops.eri.shape[0], ops.ka_pq.shape[1]
     kp = row_stride(ka)
     tile_cols, tile_rs = plan(n, npair, kp) if tiles is None else tiles
@@ -236,7 +255,7 @@ def cross_spin_matvec(
             and 4 * kp * (tile_cols + tile_rs + 3) <= SMEM_BYTES):
         raise ValueError(f"tiles {(tile_cols, tile_rs)} do not fit in shared memory")
     lib = _kernel_library()
-    out = torch.empty_like(c)
+    out = torch.empty((m, n), dtype=torch.float32, device=c.device)
     with torch.cuda.device(c.device):
         rc = lib.cross_spin_matvec_f32(
             c.data_ptr(), m, n,

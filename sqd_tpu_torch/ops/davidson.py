@@ -14,6 +14,14 @@ direction collapses, a stall exit, and a thick restart.
 vectors' dtype decides, and the Ritz values are real.
 :func:`davidson_initial_block` is the start block of the complex k > 1 solve.
 
+With a ``group`` (a ``torch.distributed`` process group, the counterpart of
+``sqd_tpu``'s ``axis_name`` inside ``shard_map``) the vectors are this rank's
+shard of a dimension split over the group's ranks: every inner product, norm
+and Gram entry is completed with ``dist.all_reduce``, so every rank holds the
+same small Gram matrix, takes the same ``eigh`` and the same branches, and
+the Krylov buffers stay sharded.  :func:`davidson_initial_guess_sharded` is
+the start vector of such a solve.  Without a group nothing is communicated.
+
 The TPU workarounds of ``sqd_tpu`` (Jacobi / hybrid eigensolvers, the
 elementwise-f64 row combinations, the segmented driver) are not ported: the
 card has true f64 arithmetic.
@@ -24,6 +32,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .precision import highest_precision, real_dtype
 
@@ -35,6 +44,7 @@ __all__ = [
     "davidson_initial_block",
     "davidson_initial_guess",
     "davidson_initial_guess_k",
+    "davidson_initial_guess_sharded",
     "davidson_lowest_k",
 ]
 
@@ -60,6 +70,26 @@ def davidson_initial_guess(hdiag: torch.Tensor, dtype: torch.dtype | None = None
     v0 = spread * 0.2
     v0[torch.argmin(finite)] += 1.0
     return v0.to(dtype)
+
+
+def davidson_initial_guess_sharded(hdiag_loc: torch.Tensor, group) -> torch.Tensor:
+    """:func:`davidson_initial_guess` of a diagonal split over ``group``'s
+    ranks, from this rank's shard ``hdiag_loc``: this rank's shard of the
+    same vector (``sqd_tpu.parallel.row_sharded._sharded_initial_guess``).
+
+    A shard may hold nothing but padding, so the reference point (the global
+    minimum) and the norm are completed over the group; the rank (ranks, on
+    a tie) holding the minimum adds the spike at its local argmin.  With no
+    group it is :func:`davidson_initial_guess`.
+    """
+    finite = torch.where(hdiag_loc.abs() > 1e20, torch.inf, hdiag_loc)
+    local_min = finite.min()
+    lo = _allsum(local_min, group, op=dist.ReduceOp.MIN)
+    spread = 1.0 / (finite - lo + 1.0)  # padding: 1 / inf = 0
+    v0 = spread / torch.sqrt(_allsum(torch.sum(spread * spread), group)) * 0.2
+    if bool(local_min == lo):
+        v0[torch.argmin(finite)] += 1.0
+    return v0
 
 
 def davidson_initial_guess_k(hdiag: torch.Tensor, k: int, dtype: torch.dtype | None = None):
@@ -128,8 +158,18 @@ def _masked_eigh(t: torch.Tensor, m: int):
     return vals.to(real_dtype(t.dtype)), (vecs * active[:, None]).to(t.dtype)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.vdot(a, a).real)
+def _allsum(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` summed (or reduced by ``op``) over ``group``'s ranks, the same on
+    every rank; ``x`` itself without a group."""
+    if group is None:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def _norm(a: torch.Tensor, group=None) -> torch.Tensor:
+    return torch.sqrt(_allsum(torch.vdot(a, a), group).real)
 
 
 def _precondition(hdiag, r, theta):
@@ -142,14 +182,14 @@ def _precondition(hdiag, r, theta):
     return r / denom
 
 
-def _orthonormalize(t_vec, v, m, eps):
+def _orthonormalize(t_vec, v, m, eps, group=None):
     """Two rounds of masked classical Gram-Schmidt against the first ``m`` rows
     of ``v``; returns ``(vec, norm)``."""
     active = (torch.arange(v.shape[0], device=v.device) < m).to(v.dtype)
     for _ in range(2):
-        coeffs = (v.conj() @ t_vec) * active
+        coeffs = _allsum(v.conj() @ t_vec, group) * active
         t_vec = t_vec - v.T @ coeffs
-    nrm = _norm(t_vec)
+    nrm = _norm(t_vec, group)
     return t_vec / torch.clamp(nrm, min=eps), nrm
 
 
@@ -162,6 +202,7 @@ def davidson_ground_state(
     tol: float = 1e-5,
     max_subspace: int = 24,
     max_iterations: int = 200,
+    group=None,
 ) -> DavidsonResult:
     """Find the lowest eigenpair of the implicit symmetric (or Hermitian) operator.
 
@@ -175,10 +216,13 @@ def davidson_ground_state(
         tol: residual-norm convergence threshold.
         max_subspace: Krylov buffer rows.
         max_iterations: matvec budget.
+        group: a ``torch.distributed`` process group over which ``hdiag``,
+            ``v0`` and the vectors ``matvec`` takes and returns are split
+            (each rank passes its shard); ``None``: not split.
     """
     # f32 Gram-Schmidt and Rayleigh-Ritz need full-f32 products (no TF32)
     with highest_precision():
-        return _davidson(matvec, operator, hdiag, v0, tol, max_subspace, max_iterations)
+        return _davidson(matvec, operator, hdiag, v0, tol, max_subspace, max_iterations, group)
 
 
 def davidson_ground_state_segmented(*args, **kwargs):
@@ -190,7 +234,7 @@ def davidson_ground_state_segmented(*args, **kwargs):
     )
 
 
-def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> DavidsonResult:
+def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations, group) -> DavidsonResult:
     dim = hdiag.shape[0]
     dt = v0.dtype
     dev = v0.device
@@ -199,28 +243,28 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> Davidson
     keep = max(1, min(mss // 3, 8))
     rows = torch.arange(mss, device=dev)
 
-    v0 = v0 / _norm(v0)
+    v0 = v0 / _norm(v0, group)
     w0 = matvec(operator, v0)
     v = torch.zeros((mss, dim), dtype=dt, device=dev)
     w = torch.zeros((mss, dim), dtype=dt, device=dev)
     t = torch.zeros((mss, mss), dtype=dt, device=dev)
     v[0], w[0] = v0, w0
-    t[0, 0] = torch.vdot(v0, w0)
+    t[0, 0] = _allsum(torch.vdot(v0, w0), group)
     theta = t[0, 0].real.clone()
     u, hu = v0, w0
-    rnorm = float(_norm(w0 - theta * v0))
+    rnorm = float(_norm(w0 - theta * v0, group))
     m, it = 1, 0
     done = rnorm < tol
     while not done and it < max_iterations:
         r = hu - theta * u
         pre = _precondition(hdiag, r, theta)
-        pre_norm = float(_norm(pre))
-        t_new, nrm_pre = _orthonormalize(pre, v, m, eps)
+        pre_norm = float(_norm(pre, group))
+        t_new, nrm_pre = _orthonormalize(pre, v, m, eps, group)
         # the clamped preconditioner can give a direction (almost) inside the
         # subspace: fall back to the raw residual, and stop at the precision
         # floor when that collapses too (reported as converged, as in sqd_tpu)
         if float(nrm_pre) <= dep_eps * max(pre_norm, eps):
-            t_new, nrm_raw = _orthonormalize(r, v, m, eps)
+            t_new, nrm_raw = _orthonormalize(r, v, m, eps, group)
             if float(nrm_raw) <= dep_eps * max(rnorm, eps):
                 it += 1
                 done = True
@@ -236,22 +280,22 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations) -> Davidson
             v[:keep], w[:keep] = v_keep, w_keep
             t[rows[:keep], rows[:keep]] = vals[:keep].to(dt)
             m = keep
-        t_ortho, _ = _orthonormalize(t_new, v, m, eps)
+        t_ortho, _ = _orthonormalize(t_new, v, m, eps, group)
         w_new = matvec(operator, t_ortho)
         v[m], w[m] = t_ortho, w_new
-        col = (v.conj() @ w_new) * (rows <= m)
+        col = _allsum(v.conj() @ w_new, group) * (rows <= m)
         t[m, :] = col.conj()
         t[:, m] = col
         m += 1
         vals, vecs = _masked_eigh(t, m)
         theta, y = vals[0], vecs[:, 0]
         u, hu = y @ v, y @ w
-        rnorm = float(_norm(hu - theta * u))
+        rnorm = float(_norm(hu - theta * u, group))
         it += 1
         done = rnorm < tol
     return DavidsonResult(
         theta=float(theta),
-        vector=u / _norm(u),
+        vector=u / _norm(u, group),
         residual_norm=rnorm,
         iterations=it,
         converged=done,
@@ -268,6 +312,7 @@ def davidson_lowest_k(
     tol: float = 1e-5,
     max_subspace: int = 32,
     max_iterations: int = 300,
+    group=None,
 ) -> DavidsonKResult:
     """Block Davidson: the k lowest eigenpairs of an implicit symmetric (or
     Hermitian) operator.
@@ -276,15 +321,19 @@ def davidson_lowest_k(
     ``v0`` is a ``(k, dim)`` start block (see :func:`davidson_initial_guess_k`);
     each iteration expands the shared Krylov space with the preconditioned
     residual of the lowest unconverged Ritz pair, and thick restarts keep at
-    least ``k + 2`` Ritz vectors, so converged pairs are never lost.
+    least ``k + 2`` Ritz vectors, so converged pairs are never lost.  With a
+    ``group``, every rank passes its shard of ``hdiag`` and of each row of
+    ``v0``, as in :func:`davidson_ground_state`.
     """
     if k >= max_subspace - 2:
         raise ValueError(f"max_subspace ({max_subspace}) must exceed k + 2 ({k + 2})")
     with highest_precision():
-        return _davidson_k(matvec, operator, hdiag, v0, k, tol, max_subspace, max_iterations)
+        return _davidson_k(matvec, operator, hdiag, v0, k, tol, max_subspace, max_iterations,
+                           group)
 
 
-def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations) -> DavidsonKResult:
+def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations,
+                group) -> DavidsonKResult:
     dim = hdiag.shape[0]
     dt = v0.dtype
     dev = v0.device
@@ -293,22 +342,24 @@ def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations) -> Dav
     keep = min(max(k + 2, min(mss // 3, 8)), mss - 2)
     rows = torch.arange(mss, device=dev)
 
+    def row_norms(x):
+        return torch.sqrt(_allsum((x * x.conj()).real.sum(dim=1), group))
+
     def ritz(v, w, t, m):
         vals, vecs = _masked_eigh(t, m)
         thetas = vals[:k]
         y = vecs[:, :k]  # (mss, k)
         u, hu = y.T @ v, y.T @ w
-        res = hu - thetas[:, None] * u
-        return thetas, u, hu, torch.sqrt((res * res.conj()).real.sum(dim=1))
+        return thetas, u, hu, row_norms(hu - thetas[:, None] * u)
 
     # seed the basis with the orthonormalized start block (k matvecs)
     v = torch.zeros((mss, dim), dtype=dt, device=dev)
     w = torch.zeros((mss, dim), dtype=dt, device=dev)
     for i in range(k):
-        v[i], _ = _orthonormalize(v0[i], v, i, eps)
+        v[i], _ = _orthonormalize(v0[i], v, i, eps, group)
         w[i] = matvec(operator, v[i])
     t = torch.zeros((mss, mss), dtype=dt, device=dev)
-    blk = v[:k].conj() @ w[:k].T
+    blk = _allsum(v[:k].conj() @ w[:k].T, group)
     t[:k, :k] = 0.5 * (blk + blk.conj().T)  # symmetrize roundoff
     m, it = k, 0
     thetas, u, hu, rnorms = ritz(v, w, t, m)
@@ -318,10 +369,10 @@ def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations) -> Dav
         pick = int(torch.nonzero(rnorms >= tol)[0, 0])
         r = hu[pick] - thetas[pick] * u[pick]
         pre = _precondition(hdiag, r, thetas[pick])
-        pre_norm = float(_norm(pre))
-        t_new, nrm_pre = _orthonormalize(pre, v, m, eps)
+        pre_norm = float(_norm(pre, group))
+        t_new, nrm_pre = _orthonormalize(pre, v, m, eps, group)
         if float(nrm_pre) <= dep_eps * max(pre_norm, eps):
-            t_new, nrm_raw = _orthonormalize(r, v, m, eps)
+            t_new, nrm_raw = _orthonormalize(r, v, m, eps, group)
             if float(nrm_raw) <= dep_eps * max(float(rnorms[pick]), eps):
                 it += 1
                 done = True
@@ -336,20 +387,19 @@ def _davidson_k(matvec, operator, hdiag, v0, k, tol, mss, max_iterations) -> Dav
             v[:keep], w[:keep] = v_keep, w_keep
             t[rows[:keep], rows[:keep]] = vals[:keep].to(dt)
             m = keep
-        t_ortho, _ = _orthonormalize(t_new, v, m, eps)
+        t_ortho, _ = _orthonormalize(t_new, v, m, eps, group)
         w_new = matvec(operator, t_ortho)
         v[m], w[m] = t_ortho, w_new
-        col = (v.conj() @ w_new) * (rows <= m)
+        col = _allsum(v.conj() @ w_new, group) * (rows <= m)
         t[m, :] = col.conj()
         t[:, m] = col
         m += 1
         thetas, u, hu, rnorms = ritz(v, w, t, m)
         it += 1
         done = bool((rnorms < tol).all())
-    row_norms = torch.sqrt((u * u.conj()).real.sum(dim=1))
     return DavidsonKResult(
         thetas=thetas,
-        vectors=u / torch.clamp(row_norms, min=eps)[:, None],
+        vectors=u / torch.clamp(row_norms(u), min=eps)[:, None],
         residual_norms=rnorms,
         iterations=it,
         converged=bool((rnorms < tol).all()),

@@ -88,19 +88,26 @@ class DenseDFOperator:
         m, n = self.wa.shape[1], self.wb.shape[1]
         if (m, n) != (m_in, n_in):
             c = torch.nn.functional.pad(c, (0, n - n_in, 0, m - m_in))
-        x_tot = self.wa.shape[0]
-        cx = x_tot if self.x_chunk == 0 else min(self.x_chunk, x_tot)
         with highest_precision():
             sigma = self.haa.to(dt) @ c
             sigma.addmm_(c, self.hbb.to(dt).T)
+            self.add_cross_spin(sigma, c)
+        if (m, n) != (m_in, n_in):
+            sigma = sigma[:m_in, :n_in]
+        return sigma
+
+    def add_cross_spin(self, sigma: torch.Tensor, c: torch.Tensor) -> None:
+        """``sigma += sum_x Wa_x @ c @ Wb_x^T`` over this operator's factors,
+        ``x_chunk`` at a time, for ``c`` at the factors' widths."""
+        dt = c.dtype
+        x_tot = self.wa.shape[0]
+        cx = x_tot if self.x_chunk == 0 else min(self.x_chunk, x_tot)
+        with highest_precision():
             for x0 in range(0, x_tot, cx):
                 wa_c = self.wa[x0 : x0 + cx].to(dt)
                 wb_c = self.wb[x0 : x0 + cx].to(dt)
                 t = torch.matmul(wa_c, c)  # (cx, M, N)
                 sigma += torch.bmm(t, wb_c.transpose(1, 2)).sum(dim=0)
-        if (m, n) != (m_in, n_in):
-            sigma = sigma[:m_in, :n_in]
-        return sigma
 
 
 def dense_df_matvec_flat(op: DenseDFOperator, x: torch.Tensor) -> torch.Tensor:

@@ -212,24 +212,35 @@ class SCIHamiltonian(SCIBasis):
         """
         ops = self.__dict__.get("_cross_spin_operands")
         if ops is None:
-            eri = self.eri_t.to(torch.float32, copy=True)
-            if self.spin_shift != 0.0:
-                npair = self.norb * self.norb
-                perm = torch.as_tensor(self._qp_perm(), device=eri.device)
-                eri[perm, torch.arange(npair, device=eri.device)] -= self.spin_shift
+            eri = self.penalty_folded_eri(torch.float32)
             ops = cross_spin.prepare(self.src_a, self.sign_a, self.src_b, self.sign_b, eri)
             object.__setattr__(self, "_cross_spin_operands", ops)
         return ops
 
+    def penalty_folded_eri(self, dtype: torch.dtype) -> torch.Tensor:
+        """``eri_t`` in ``dtype`` (a copy) with the spin penalty's mixed term
+        ``-shift * sum_pq E^a_pq E^b_qp`` folded in as ``-shift`` at
+        ``[qp, pq]``; the cross-spin contraction with it applies both, and
+        ``shift * (const - target) * c`` is what the penalty leaves."""
+        eri = self.eri_t.to(dtype, copy=True)
+        if self.spin_shift != 0.0:
+            npair = self.norb * self.norb
+            perm = torch.as_tensor(self._qp_perm(), device=eri.device)
+            eri[perm, torch.arange(npair, device=eri.device)] -= self.spin_shift
+        return eri
+
     def apply_samespin_alpha(self, c: torch.Tensor) -> torch.Tensor:
         """``(H_aa (x) I) c`` via the neighbour list (row gathers), in column
-        chunks when the gathered ``(M, La, N)`` tensor would be too large."""
+        chunks when the gathered ``(M, La, N)`` tensor would be too large.
+
+        The output has one row per row of the list, which may index more rows
+        of ``c`` than it has (a row shard's list reads the whole ``c``)."""
         vals = self.nbr_val_a.to(c.dtype)
-        m, n = c.shape
+        m, n = self.nbr_idx_a.shape[0], c.shape[1]
         step = _chunk(n, m * self.nbr_idx_a.shape[1] * c.element_size())
         if step == n:
             return torch.einsum("jl,jln->jn", vals, c[self.nbr_idx_a])
-        out = torch.empty_like(c)
+        out = c.new_empty((m, n))
         for j0 in range(0, n, step):
             picked = c[:, j0 : j0 + step][self.nbr_idx_a]  # (M, La, step)
             out[:, j0 : j0 + step] = torch.einsum("jl,jln->jn", vals, picked)
@@ -237,13 +248,16 @@ class SCIHamiltonian(SCIBasis):
 
     def apply_samespin_beta(self, c: torch.Tensor) -> torch.Tensor:
         """``(I (x) H_bb) c`` via the neighbour list (column gathers), in row
-        chunks when the gathered ``(M, N, Lb)`` tensor would be too large."""
+        chunks when the gathered ``(M, N, Lb)`` tensor would be too large.
+
+        The output has one column per row of the list, which may index more
+        columns of ``c`` than it has (a column shard's list)."""
         vals = self.nbr_val_b.to(c.dtype)
-        m, n = c.shape
+        m, n = c.shape[0], self.nbr_idx_b.shape[0]
         step = _chunk(m, n * self.nbr_idx_b.shape[1] * c.element_size())
         if step == m:
             return torch.einsum("kl,mkl->mk", vals, c[:, self.nbr_idx_b])
-        out = torch.empty_like(c)
+        out = c.new_empty((m, n))
         for i0 in range(0, m, step):
             picked = c[i0 : i0 + step][:, self.nbr_idx_b]  # (step, N, Lb)
             out[i0 : i0 + step] = torch.einsum("kl,mkl->mk", vals, picked)

@@ -20,6 +20,7 @@ from sqd_tpu import fermion as jax_fermion
 from sqd_tpu.primitives import BitArray as JaxBitArray
 from sqd_tpu.utils import checkpoint as jax_checkpoint
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.primitives import BitArray
 from sqd_tpu_torch.utils import checkpoint

@@ -18,6 +18,7 @@ from sqd_tpu import chem as jax_chem
 from sqd_tpu.chem import sto_ng as jax_sto_ng
 from sqd_tpu.fermion import solve_sci as jax_solve_sci
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import chem, native
 from sqd_tpu_torch.chem import sto_ng
 from sqd_tpu_torch.chem.integrals import Shell

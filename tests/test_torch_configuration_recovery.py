@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from sqd_tpu import configuration_recovery as jax_cr
 from sqd_tpu.ops import sampling as jax_sampling
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import configuration_recovery as cr
 from sqd_tpu_torch.ops import sampling
 

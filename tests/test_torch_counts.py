@@ -9,6 +9,7 @@ from sqd_tpu import counts as jax_counts
 from sqd_tpu.ops import bitpack as jax_bitpack
 from sqd_tpu.primitives import BitArray as JaxBitArray
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import counts
 from sqd_tpu_torch.ops import bitpack
 from sqd_tpu_torch.primitives import BitArray

@@ -29,6 +29,7 @@ from sqd_tpu.ops import bitpack, dense_fci
 from sqd_tpu.ops.hamiltonian import build_sci_hamiltonian
 from sqd_tpu.ops.pallas_matvec import cross_spin_matvec as pallas_cross_spin
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch.convert import FIELDS, hamiltonian_from_numpy
 from sqd_tpu_torch.ops import cross_spin
 
@@ -345,3 +346,25 @@ def test_wrapper_dispatch_on_cpu(problem):
     torch.testing.assert_close(out, cross_spin.cross_spin_plain(torch.as_tensor(c), ops))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cross_spin.cross_spin_matvec(torch.as_tensor(c, device="meta"), ops)
+
+
+@pytest.mark.parametrize("spin", [(0.0, 0.0), (0.35, 2.0)], ids=["bare", "spin_penalty"])
+def test_row_restricted_operands(problem, spin):
+    """Operands built from some alpha rows' tables give those rows of the
+    whole operator's cross-spin channel; their sources read rows past the
+    output range, so ``c`` must hold at least ``src_rows`` rows."""
+    _, ham_t, c = _pair(problem, pad_to=(48, 128), spin_shift=spin[0], spin_target=spin[1])
+    full_ops = ham_t.cross_spin_operands()
+    c = torch.as_tensor(c)
+    rows = slice(12, 30)
+    ops = cross_spin.prepare(ham_t.src_a[:, rows], ham_t.sign_a[:, rows], ham_t.src_b,
+                             ham_t.sign_b, full_ops.eri)
+    assert ops.shape == (18, 128) and ops.src_rows > 30
+    out = cross_spin.cross_spin_matvec(c, ops)
+    assert out.shape == (18, 128)
+    torch.testing.assert_close(out, cross_spin.cross_spin_plain(c, full_ops)[rows],
+                               rtol=0, atol=1e-5 * max(float(out.abs().max()), 1.0))
+    with pytest.raises(ValueError, match="reading"):
+        cross_spin.cross_spin_matvec(c[: ops.src_rows - 1], ops)
+    with pytest.raises(ValueError, match="reading"):
+        cross_spin.cross_spin_plain(c[:, :100], ops)

@@ -17,6 +17,7 @@ from sqd_tpu.ops import davidson as jax_davidson
 from sqd_tpu.ops.hamiltonian import build_sci_hamiltonian as jax_build
 from sqd_tpu.ops.hamiltonian import sci_matvec_flat as jax_matvec_flat
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch.convert import FIELDS, hamiltonian_from_numpy
 from sqd_tpu_torch.ops import davidson
 from sqd_tpu_torch.ops.hamiltonian import sci_matvec_flat

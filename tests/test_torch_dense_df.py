@@ -24,6 +24,7 @@ from sqd_tpu.ops import dense_df as jax_dense_df
 from sqd_tpu.ops.hamiltonian import build_sci_hamiltonian as jax_build
 from sqd_tpu.ops.hamiltonian import pivoted_cholesky_pairs
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.convert import DENSE_DF_FIELDS, dense_df_operator_from_numpy
 from sqd_tpu_torch.ops import dense_df

@@ -20,6 +20,7 @@ from sqd_tpu.ops import hamiltonian as jax_hamiltonian
 from sqd_tpu.ops import linktab as jax_linktab
 from sqd_tpu.ops.dense_fci import all_hamming_strings
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import native
 from sqd_tpu_torch.ops import bitpack, hamiltonian, linktab
 
@@ -263,3 +264,30 @@ def test_unknown_tables_backend_raises():
     with pytest.raises(ValueError, match="unknown tables_backend"):
         hamiltonian.build_sci_hamiltonian(pa, pa, np.eye(4), np.zeros((4,) * 4), 4, (2, 2),
                                           device="cpu", tables_backend="numpy")
+
+
+@pytest.mark.parametrize("spin", [(0.0, 0.0), (0.35, 2.0)], ids=["bare", "spin_penalty"])
+def test_converted_device_built_operator_matches(spin):
+    """An ``sqd_tpu`` operator built with ``tables_backend="device"`` (invalid
+    gather sources left at -1) converts, and the port's f64 and f32 matvecs
+    equal ``sqd_tpu``'s within 1e-12 and 1e-5 of ``max(|sigma|, 1)``."""
+    from sqd_tpu_torch.convert import FIELDS, hamiltonian_from_numpy
+
+    norb, nelec = 7, (3, 2)
+    h1, eri = _integrals(norb, seed=41)
+    pa, pb = _strings(norb, 3, 27, seed=42), _strings(norb, 2, 17, seed=43)
+    ham_j = jax_hamiltonian.build_sci_hamiltonian(
+        pa, pb, h1, eri, norb, nelec, pad_to=(32, 24), tables_backend="device",
+        spin_shift=spin[0], spin_target=spin[1])
+    assert int(np.asarray(ham_j.src_a).min()) < 0  # the unclamped sources this converts
+    ham_t = hamiltonian_from_numpy(
+        {k: np.asarray(getattr(ham_j, k)) for k in FIELDS}, norb=norb, nelec=nelec,
+        spin_shift=spin[0], spin_target=spin[1], device="cpu")
+    assert int(ham_t.src_a.min()) == 0 and int(ham_t.src_b.min()) == 0
+    c = np.zeros(ham_j.shape)
+    c[:27, :17] = np.random.default_rng(44).normal(size=(27, 17))
+    for dtype, jdtype, tol in ((torch.float64, jnp.float64, 1e-12),
+                               (torch.float32, jnp.float32, 1e-5)):
+        ref = np.asarray(ham_j.astype(jdtype).matvec(jnp.asarray(c, jdtype)), np.float64)
+        out = ham_t.astype(dtype).matvec(torch.as_tensor(c, dtype=dtype)).double().numpy()
+        assert np.max(np.abs(out - ref)) <= tol * max(np.max(np.abs(ref)), 1.0)

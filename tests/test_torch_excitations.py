@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from sqd_tpu import fermion as jax_fermion
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 
 from test_torch_sqd_loop import _chip_smoke

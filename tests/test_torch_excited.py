@@ -15,6 +15,7 @@ import torch
 from sqd_tpu import fermion as jax_fermion
 from sqd_tpu.ops import dense_fci
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 
 torch.set_num_threads(2)

@@ -17,6 +17,7 @@ from sqd_tpu.ops import bitpack, dense_fci
 from sqd_tpu.ops.hamiltonian import build_sci_hamiltonian as jax_build
 from sqd_tpu.ops.hamiltonian import expectation_value as jax_expectation
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import native
 from sqd_tpu_torch.convert import FIELDS, hamiltonian_from_numpy
 from sqd_tpu_torch.ops import bitpack as port_bitpack

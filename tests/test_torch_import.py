@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from sqd_tpu_torch import configuration_recovery, fermion, qubit, subsampling
+from sqd_tpu_torch import configuration_recovery, fermion, parallel, qubit, subsampling
 from sqd_tpu_torch.ops import hamiltonian, linktab, pauli_proj
 from sqd_tpu_torch.primitives import BitArray, SparsePauliOp
 
@@ -46,7 +46,10 @@ def test_import_pulls_in_no_jax():
                    "ops.sampling", "ops.table_cache", "utils.deprecation", "utils.device",
                    "qubit", "ops.pauli_proj", "models.heisenberg", "ops.dense_df",
                    "chem", "chem.integrals", "chem.scf", "chem.scf_open", "chem.active_space",
-                   "chem.basis_data", "chem.sto_ng"):
+                   "chem.basis_data", "chem.sto_ng", "parallel", "parallel.mesh",
+                   "parallel.distributed", "parallel.batch_solver", "parallel.sharded_solve",
+                   "parallel.row_sharded", "parallel.grid_sharded", "parallel.df_sharded",
+                   "parallel.dryrun"):
         assert f"sqd_tpu_torch.{module}" in names
     assert bad == "[]"
 
@@ -107,6 +110,18 @@ ENTRY_POINTS = {
     "pauli_term_table": lambda: pauli_proj.pauli_term_table(_PACKED, _HAM.paulis[0]),
     "build_gather_tables": lambda: linktab.build_gather_tables(_PACKED, 4),
     "build_samespin_tables": lambda: hamiltonian.build_samespin_tables(_PACKED, _H1, _ERI, 4, 3),
+    "solve_sci_batch_sharded": lambda: parallel.solve_sci_batch_sharded(
+        [(_STRS, _STRS)], _H1, _ERI, 4, (3, 3)),
+    "solve_sci_distributed": lambda: parallel.solve_sci_distributed((_STRS, _STRS), _H1, _ERI,
+                                                                    4, (3, 3)),
+    "solve_sci_rowsharded": lambda: parallel.solve_sci_rowsharded((_STRS, _STRS), _H1, _ERI,
+                                                                  4, (3, 3)),
+    "solve_sci_batch_rowsharded": lambda: parallel.solve_sci_batch_rowsharded(
+        [(_STRS, _STRS)], _H1, _ERI, 4, (3, 3)),
+    "solve_sci_gridsharded": lambda: parallel.solve_sci_gridsharded((_STRS, _STRS), _H1, _ERI,
+                                                                    4, (3, 3)),
+    "solve_sci_dfsharded": lambda: parallel.solve_sci_dfsharded((_STRS, _STRS), _H1, _ERI,
+                                                                4, (3, 3)),
 }
 
 

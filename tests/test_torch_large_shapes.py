@@ -24,6 +24,7 @@ from sqd_tpu import native as jax_native
 from sqd_tpu.ops import bitpack, dense_fci
 from sqd_tpu.ops import hamiltonian as jax_ham
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion, native
 from sqd_tpu_torch.convert import FIELDS, hamiltonian_from_numpy
 from sqd_tpu_torch.ops import hamiltonian as port_ham

@@ -16,6 +16,7 @@ from sqd_tpu.models import fcidump as jax_fcidump
 from sqd_tpu.models import hubbard as jax_hubbard
 from sqd_tpu.utils import tracing as jax_tracing
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.models import fcidump, hubbard
 from sqd_tpu_torch.utils import tracing

@@ -19,6 +19,7 @@ from sqd_tpu import fermion as jax_fermion
 from sqd_tpu.models.hubbard import hubbard_integrals
 from sqd_tpu.ops import dense_fci
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 
 torch.set_num_threads(2)

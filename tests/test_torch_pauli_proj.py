@@ -24,6 +24,7 @@ from sqd_tpu.ops import pauli_proj as jax_pp
 from sqd_tpu.primitives import Pauli as JaxPauli
 from sqd_tpu.primitives import SparsePauliOp as JaxSparsePauliOp
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch.convert import PAULI_FIELDS, pauli_operator_from_numpy
 from sqd_tpu_torch.models.heisenberg import heisenberg_ring
 from sqd_tpu_torch.ops import bitpack, davidson

@@ -22,6 +22,7 @@ from sqd_tpu.models.heisenberg import transverse_field_ising as jax_tfim
 from sqd_tpu.primitives import Pauli as JaxPauli
 from sqd_tpu.primitives import SparsePauliOp as JaxSparsePauliOp
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import native, qubit
 from sqd_tpu_torch.models.heisenberg import heisenberg_ring, transverse_field_ising
 from sqd_tpu_torch.ops import bitpack, davidson

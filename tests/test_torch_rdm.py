@@ -12,6 +12,7 @@ from sqd_tpu.ops import bitpack, dense_fci, linktab as jax_linktab
 from sqd_tpu.ops import rdm as jax_rdm
 from sqd_tpu.ops.hamiltonian import build_sci_basis as jax_basis
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch.ops import linktab, rdm
 from sqd_tpu_torch.ops.hamiltonian import build_sci_basis
 

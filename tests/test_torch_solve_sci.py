@@ -20,6 +20,7 @@ from sqd_tpu.chem import Molecule, active_space_integrals, rhf
 from sqd_tpu.models.hubbard import hubbard_integrals
 from sqd_tpu.ops import dense_fci
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.models.fcidump import read_fcidump
 from sqd_tpu_torch.primitives import BitArray

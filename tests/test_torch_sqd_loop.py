@@ -30,6 +30,7 @@ from sqd_tpu.chem import Molecule, active_space_integrals, rhf
 from sqd_tpu.ops import dense_fci
 from sqd_tpu.primitives import BitArray as JaxBitArray
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import configuration_recovery, fermion
 from sqd_tpu_torch.counts import generate_bit_array_uniform
 from sqd_tpu_torch.models.fcidump import read_fcidump

@@ -17,6 +17,7 @@ import jax
 
 from sqd_tpu import subsampling as jax_sub
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import subsampling as sub
 
 

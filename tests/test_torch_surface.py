@@ -145,3 +145,34 @@ def test_small_ported_names_match():
     c = torch.as_tensor(rng.normal(size=(3, 3)))
     a, b = rdm.rdm1s(basis, c)
     assert torch.equal(rdm.rdm1(basis, c), a + b)
+
+
+def _parallel_names():
+    """The names ``sqd_tpu/parallel/__init__.py`` imports, read from its
+    source (as ``_reexported_names`` reads the package's)."""
+    import sqd_tpu.parallel
+
+    tree = ast.parse(inspect.getsource(sqd_tpu.parallel))
+    return sorted(alias.asname or alias.name
+                  for node in tree.body if isinstance(node, ast.ImportFrom) and node.level == 1
+                  for alias in node.names)
+
+
+PARALLEL_NAMES = _parallel_names()
+
+
+def test_parallel_surface_is_whole():
+    assert len(PARALLEL_NAMES) == 12
+
+
+@pytest.mark.parametrize("name", PARALLEL_NAMES)
+def test_parallel_name_resolves(name):
+    """Each name of ``sqd_tpu.parallel`` is a function of the port's
+    ``parallel`` package, defined in its namesake module, and no stub."""
+    from sqd_tpu import parallel as jax_parallel
+    from sqd_tpu_torch import parallel
+
+    ours, theirs = getattr(parallel, name), getattr(jax_parallel, name)
+    assert callable(ours)
+    assert ours.__module__ == theirs.__module__.replace("sqd_tpu", "sqd_tpu_torch", 1)
+    assert "NotImplementedError" not in inspect.getsource(ours)

@@ -17,6 +17,7 @@ from sqd_tpu.fermion import solve_sci as jax_solve_sci
 from sqd_tpu.ops import dense_fci
 from sqd_tpu.ops.hamiltonian import build_sci_hamiltonian as jax_build
 
+from test_torch_native_state import sqd_tpu_native_loaded  # noqa: F401  (autouse fixture)
 from sqd_tpu_torch import fermion, native
 from sqd_tpu_torch.ops import bitpack
 from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian

@@ -92,7 +92,10 @@ Phases, each printing one line; any failure exits non-zero:
    padded 3168 x 3200, npair 1296).  (a) the operator: ``eri_factor="auto"``
    must attach the factor and the sparse same-spin tables must be built;
    the kernel against its plain version at this shape, then timed beside
-   its bound; (b) ``DenseDFOperator.matvec`` (f32, ``wb`` aliasing ``wa``)
+   its bound; the RDMs' two-hole tables of these strings
+   (:func:`two_hole_tables`: int32 sources, as ``sqd_tpu``'s) built, their
+   measured bytes and seconds printed, int32 indexing equal to int64; (b)
+   ``DenseDFOperator.matvec`` (f32, ``wb`` aliasing ``wa``)
    against the kernel-route f32 matvec and both against the f64 blocked
    matvec (the kernel route within ``1e-5 * max(|f64|, 1)``, the dense
    route, three f32 products in a row, within ``1e-4`` of it); one matvec of each route timed
@@ -175,7 +178,21 @@ Phases, each printing one line; any failure exits non-zero:
    ``dryrun_multichip`` on every card (NCCL) prints its line; (b) the same
    dry run on two ranks both on the one card over gloo (every mode: gloo
    serves their collectives for CUDA tensors,
-   ``probes/torch_gloo_cuda_collectives.py``), each within 1e-8 Ha of (c)'s.
+   ``probes/torch_gloo_cuda_collectives.py``), each within 1e-8 Ha of (c)'s;
+14. the guide examples — (a) each of the sixteen ``sqd_tpu_torch/examples``
+   at its guide size on the card with the port's own recovery noise
+   (:func:`examples_phase`), one line each with its seconds, the card's name
+   and power limit: the lines no recovery noise touches (exact and
+   dense-oracle energies, mean fields, solves on fixed strings, a loop's
+   first iteration, ``13``'s route energies, ``15``'s ranks and oracle)
+   equal to the ``sqd_tpu`` record ``sqd_tpu_torch/data/example_records.json``
+   (``tools/make_example_records.py``) with numbers within 1e-7, each
+   example's own asserts, and every printed variational energy no lower than
+   the printed exact energy less 1e-8 Ha; (b) example 13's inputs
+   (36 orbitals, two-word strings) by ``solve_sci``'s gather route in f32:
+   the kernel launched, the energy within 1e-7 Ha of the example's f64
+   energy, and the kernel against its plain version on that operator, timed
+   beside its bound.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -1241,6 +1258,40 @@ def qubit_k_phase(dev, smi) -> None:
                 fail(f"qubit k = {k} [{name}]: {what}")
 
 
+def two_hole_tables(dev, smi, packed, norb, n_elec) -> None:
+    """Phase 10 (a): ``linktab.build_desdes_tables`` on the config-5 strings
+    (the RDMs' same-spin tables: int32 sources, as ``sqd_tpu``'s), their
+    measured bytes and seconds; indexing with a chunk of the int32 sources
+    must equal indexing with its int64 cast."""
+    import torch
+
+    from sqd_tpu_torch.ops import linktab
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sync()
+    t0 = time.perf_counter()
+    _, src, sign = linktab.build_desdes_tables(packed, norb, n_elec, device=dev)
+    sync()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    src_bytes, sign_bytes = (t.numel() * t.element_size() for t in (src, sign))
+    values = torch.arange(len(packed), dtype=torch.float64, device=dev)
+    chunk = src[:, :4096]
+    same = torch.equal(values[chunk], values[chunk.long()])
+    print(f"config 5 two-hole tables: {src.shape[1]} intermediates per spin, src "
+          f"{tuple(src.shape)} {src.dtype} {src_bytes / 1e9:.3f} GB + sign {sign.dtype} "
+          f"{sign_bytes / 1e9:.3f} GB = {(src_bytes + sign_bytes) / 1e9:.3f} GB measured (int64 "
+          f"sources would take {src_bytes * 2 / 1e9:.3f} GB); built in {secs:.3f} s, peak "
+          f"{peak / 1e9:.3f} GB; int32 indexing equals int64 indexing: {same} ({smi})",
+          flush=True)
+    if src.dtype != torch.int32 or not same:
+        fail("config 5: the two-hole sources are not int32, or int32 indexing differs")
+    del src, sign, values, chunk
+    torch.cuda.empty_cache()
+
+
 def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
     """Phase 10: BASELINE config 5 by the gather route and the dense
     density-fitted route.  Returns the kernel's launches in the gather solve,
@@ -1251,7 +1302,7 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
     import numpy as np
     import torch
 
-    from sqd_tpu_torch import fermion, native
+    from sqd_tpu_torch import fermion
     from sqd_tpu_torch.ops import bitpack, cross_spin
     from sqd_tpu_torch.ops import hamiltonian as ham_ops
     from sqd_tpu_torch.ops.dense_df import densify
@@ -1272,14 +1323,10 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
     ham32 = ham64.astype(torch.float32)
     m, n = ham64.shape
     rank = None if ham64.eri_chol is None else ham64.eri_chol.shape[0]
-    # why (c) passes with_rdms=False: the same-spin 2-RDMs' two-hole tables
-    two_hole = len(native.desdes_unique(packed, nelec[0]))
     print(f"config 5: {len(strs)} x {len(strs)} = {len(strs) ** 2} determinants of {norb} "
           f"orbitals, {packed.shape[1]}-word strings, operator {(m, n)}, npair {norb * norb}, "
           f"col_block {ham64.col_block}, eri_factor 'auto' rank {rank}, same-spin lists "
-          f"{tuple(ham64.nbr_idx_a.shape)} ({probe.sparse_fills} sparse fills), {two_hole} "
-          f"two-hole intermediates per spin (an int64 (npair, K) table of "
-          f"{norb * norb * two_hole * 8 / 1e9:.1f} GB, so no 2-RDM here); build "
+          f"{tuple(ham64.nbr_idx_a.shape)} ({probe.sparse_fills} sparse fills); build "
           f"{t_build:.3f} s ({smi})", flush=True)
     checks = {
         "two-word strings": packed.shape[1] == 2,
@@ -1295,6 +1342,9 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
     err = check_kernel("config5", ham32, rng)
     timing = time_kernel("config5", ham32, rng, smi, rounds=3, calls=3)
     timing["max_abs_err"] = err
+    # the 2-RDMs' two-hole tables at this shape, built and measured; the
+    # 2-RDM's Grams over them stay out of (c) (with_rdms=False)
+    two_hole_tables(dev, smi, packed, norb, nelec[0])
     # the operator by both table builds (phase 12 (b)): 12,880 same-spin
     # candidates per string, so the device build runs in row chunks; the
     # pair factor, which both backends share, is left out of these builds
@@ -2213,6 +2263,91 @@ def parallel_phase(dev, smi, h1, eri, ecore, it0, t_loop, strs_a, strs_b, e_head
     return launches_a, timing
 
 
+def examples_phase(dev, smi) -> tuple[dict, float]:
+    """Phase 14 (a): every port example at its guide size on the card, with
+    the port's own recovery noise.  Its ``exact`` and ``time`` lines must
+    equal the ``sqd_tpu`` record (``tools/make_example_records.py``) by
+    ``records.compare`` (numbers within 1e-7), its printed variational
+    energies lie no lower than its printed exact energy less 1e-8 Ha, and its
+    own asserts hold.  Returns each example's seconds, and ``13``'s energy."""
+    import tempfile
+
+    from sqd_tpu_torch.examples import records
+
+    recorded = records.load_records()
+    seconds, energy13 = {}, None
+    for name in records.EXAMPLES:
+        module = records.load_example(name)
+        cwd = os.getcwd()
+        sync()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)  # where an example writes files
+            try:
+                lines, results = records.run_calls(module, records.SIZES[name]["guide"],
+                                                   device=dev, **records.PORT_KWARGS.get(name, {}))
+            except Exception as exc:  # an assert of the example, or an error
+                fail(f"example {name} failed on the card: {type(exc).__name__}: {exc}")
+            finally:
+                os.chdir(cwd)
+        sync()
+        seconds[name] = time.perf_counter() - t0
+        if name == "13_large_active_space":
+            energy13 = results[0]
+        rec = recorded[name]["guide"]["lines"]
+        errors = records.compare(name, rec, lines, all_lines=False)
+        errors += records.variational_violations(name, lines)
+        kinds = records.classify(name, lines)
+        print(f"example {name}: {seconds[name]:.2f} s on {smi}; {len(lines)} lines, "
+              f"{kinds.count('exact')} exact and {kinds.count('time')} timing lines held to the "
+              f"record (numbers within {records.TOL:.0e}), {kinds.count('loop')} on the loop's "
+              f"noise; asserts and variational bound held", flush=True)
+        if errors:
+            print("\n".join(lines), flush=True)
+            fail(f"example {name} disagrees with the sqd_tpu record: {errors[:5]}")
+    return seconds, energy13
+
+
+def example_kernel_phase(dev, smi, rng, energy13) -> tuple[int, dict]:
+    """Phase 14 (b): the inputs of example 13 (``problem()``: 36 orbitals,
+    two-word strings, 24 x 24) by ``solve_sci``'s gather route in f32, which
+    must launch the kernel and land within 1e-7 Ha of the example's f64
+    energy; the kernel against its plain version on that operator, timed.
+    Returns the launches and the timing."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch.examples import records
+    from sqd_tpu_torch.fermion import solve_sci
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian
+
+    h1, eri, sa, sb, norb, nelec = records.load_example("13_large_active_space").problem()
+    cross_spin.cross_spin_matvec.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = solve_sci((sa, sb), h1, eri, norb, nelec, spin_sq=None, solver_dtype=torch.float32,
+                    device=dev)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = cross_spin.cross_spin_matvec.launches
+    diff = abs(res.energy - energy13)
+    print(f"example 13 by the f32 gather route: E = {res.energy:.10f} in {secs:.3f} s, kernel "
+          f"launches {launches}; |E - the example's f64 energy| {diff:.3e} (gate "
+          f"{TOL_ENERGY:.0e}); 2-RDM finite {bool(np.isfinite(res.rdm2).all())} ({smi})",
+          flush=True)
+    if launches == 0 or diff > TOL_ENERGY or not np.isfinite(res.rdm2).all():
+        fail("example 13's f32 solve: no kernel launch, or its energy is off")
+    pad = -(-len(sa) // 32) * 32  # solve_sci's pad_bucket
+    ham32 = build_sci_hamiltonian(bitpack.pack_ints(sa, norb), bitpack.pack_ints(sb, norb), h1,
+                                  eri, norb, nelec, device=dev, pad_to=(pad, pad),
+                                  dtype=torch.float32)
+    err = check_kernel("example13", ham32, rng)
+    timing = time_kernel("example13", ham32, rng, smi)
+    timing["max_abs_err"] = err
+    return launches, timing
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2461,6 +2596,18 @@ def main() -> None:
     print(f"sharded solvers: {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
+    # -- 14. the sixteen guide examples at their guide sizes; example 13's
+    # inputs in f32 through the kernel
+    t14 = [time.perf_counter()]
+    example_seconds, energy13 = examples_phase(dev, smi)
+    t14.append(time.perf_counter())
+    example_launches, example13 = example_kernel_phase(dev, smi, rng, energy13)
+    t14.append(time.perf_counter())
+    slowest = max(example_seconds, key=example_seconds.get)
+    print(f"examples: {t14[2] - t14[0]:.1f} s: (a) {t14[1] - t14[0]:.1f} s (slowest {slowest} "
+          f"{example_seconds[slowest]:.1f} s), (b) {t14[2] - t14[1]:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
         "route": "cuda",
@@ -2475,14 +2622,16 @@ def main() -> None:
         "launches_resumed_loop": resume_launches,
         "launches_from_geometry": geometry_launches,
         "launches_sharded_solvers": parallel_launches,
-        "max_abs_err": max(*errs.values(), casci_err, config5_err, row_restricted["max_abs_err"]),
+        "launches_examples": example_launches,
+        "max_abs_err": max(*errs.values(), casci_err, config5_err, row_restricted["max_abs_err"],
+                           example13["max_abs_err"]),
         "ms": headline["ms"],
         "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this contraction
         "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5,
-                      "row_restricted": row_restricted},
+                      "row_restricted": row_restricted, "example13": example13},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

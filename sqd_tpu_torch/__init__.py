@@ -58,9 +58,12 @@ its phase 9 the qubit path (``tools/make_qubit_data.py`` writes its
 augmentation and a resumed loop (``tools/make_oo_data.py`` and
 ``tools/make_excited_data.py``).
 
-The package re-exports the names ``sqd_tpu`` re-exports.  One function
-raises ``NotImplementedError``: ``ops.davidson.davidson_ground_state_segmented``
-(a TPU workaround, left out by design).  Nothing here imports JAX or
+The package re-exports the names ``sqd_tpu`` re-exports, and every name of
+``sqd_tpu``'s modules computes here (none raises ``NotImplementedError``).
+:mod:`sqd_tpu_torch.ops.dense_fci` is the exact dense oracle;
+``sqd_tpu_torch/examples/`` holds the sixteen guide examples, run on the card
+as ``python3 sqd_tpu_torch/examples/01_quickstart.py`` (``chip_smoke.py``'s
+phase 14 runs them all).  Nothing here imports JAX or
 ``sqd_tpu``, and importing builds no native code and touches no device.  Every
 public entry point runs on the card (``device="cuda"``) unless the caller
 passes another device.

@@ -133,8 +133,10 @@ def build_desdes_tables(strs_packed: np.ndarray, norb: int, nelec_spin: int, *, 
     ``DESDES_BATCH_BYTES`` (``sqd_tpu`` maps one jitted function over the
     pairs).
 
-    Returns ``(inter_packed (K, W) numpy, src (norb^2, K) int64, sign
-    (norb^2, K) int8)``, the last two on ``device``, with ``src[(u*norb+w), k]``
+    Returns ``(inter_packed (K, W) numpy, src (norb^2, K) int32, sign
+    (norb^2, K) int8)``, the last two on ``device`` (``src`` int32 as
+    ``sqd_tpu``'s: half the bytes of int64 at config 5's 10⁶ intermediates),
+    with ``src[(u*norb+w), k]``
     the index I such that ``I = K_k + u + w`` (clamped to 0 with sign 0 where
     absent), and ``sign = <K|a_w a_u|I>``.
     """
@@ -145,7 +147,7 @@ def build_desdes_tables(strs_packed: np.ndarray, norb: int, nelec_spin: int, *, 
         inter = np.zeros((0, w_words), dtype=np.uint32)
         return (
             inter,
-            torch.zeros((npair, 0), dtype=torch.int64, device=device),
+            torch.zeros((npair, 0), dtype=torch.int32, device=device),
             torch.zeros((npair, 0), dtype=torch.int8, device=device),
         )
     inter = native.desdes_unique(strs_packed, nelec_spin)
@@ -160,7 +162,7 @@ def build_desdes_tables(strs_packed: np.ndarray, norb: int, nelec_spin: int, *, 
     u_lt_w = torch.as_tensor(consts["q_lt_p"] == 0, device=device)[:, None] & ~is_diag
 
     k = inter.shape[0]
-    src = torch.empty((npair, k), dtype=torch.int64, device=device)
+    src = torch.empty((npair, k), dtype=torch.int32, device=device)
     sign = torch.empty((npair, k), dtype=torch.int8, device=device)
     batch = max(1, DESDES_BATCH_BYTES // (k * (5 + 2 * w_words) * 8))
     for lo in range(0, npair, batch):
@@ -176,6 +178,6 @@ def build_desdes_tables(strs_packed: np.ndarray, norb: int, nelec_spin: int, *, 
         s1 = bitpack.torch_popcount_rows(i_cand & below_u[sl])
         s2 = bitpack.torch_popcount_rows(i_cand & below_w[sl]) - u_lt_w[sl].to(torch.int32)
         ok = free & (found >= 0) & ~is_diag[sl]
-        src[sl] = torch.where(ok, found, 0)
+        src[sl] = torch.where(ok, found, 0).to(torch.int32)
         sign[sl] = torch.where(ok, 1 - 2 * ((s1 + s2) & 1), 0).to(torch.int8)
     return inter, src, sign

@@ -10,7 +10,8 @@ The port of ``sqd_tpu.ops.rdm``:
   intermediate would exceed ``block_bytes``.
 * same-spin blocks ``<a+_p a+_r a_s a_q>``: the Gram of two-hole (des-des)
   gathers, whose intermediate set is closed by construction, accumulated over
-  column blocks past ``block_bytes``.
+  column blocks past ``block_bytes`` and over chunks of intermediates whose
+  int64 sources (the table is int32) stay within ``block_bytes``.
 
 ``E = sum h*dm1 + 1/2 sum (pq|rs) dm2[p,q,r,s]``.
 """
@@ -56,25 +57,24 @@ def _dm1s(ham: SCIBasis, c: torch.Tensor):
     return dm1a, dm1b
 
 
-def _samespin_dm2_from_holes(src, sign, c_rows):
+def _samespin_dm2_from_holes(src, sign, c_rows, col_block: int, k_block: int):
     """Gram of two-hole intermediates: ``c_rows`` is (n, X) for one spin axis.
 
-    Returns (npair, npair) with entry [(p, r), (q, s)] = <a+p a+r a_s a_q>.
+    Returns (npair, npair) with entry [(p, r), (q, s)] = <a+p a+r a_s a_q>,
+    accumulated over chunks of ``k_block`` intermediates (the int32 ``src``
+    cast to int64 one chunk at a time) and, inside each, over column blocks of
+    ``col_block`` (X a ``col_block`` multiple, zero-padded), so neither a full
+    int64 copy of ``src`` nor the (npair, K, X) intermediate exists whole
+    unless it fits.
     """
-    f = sign.to(c_rows.dtype)[:, :, None] * c_rows[src]  # (npair, K, X)
-    f_flat = f.reshape(f.shape[0], -1)
-    return f_flat @ f_flat.T
-
-
-def _samespin_dm2_from_holes_blocked(src, sign, c_rows, col_block: int):
-    """Column-blocked :func:`_samespin_dm2_from_holes`: the (npair, K, X)
-    intermediate never exists whole (X a ``col_block`` multiple, zero-padded)."""
-    npair = src.shape[0]
-    sgn = sign.to(c_rows.dtype)[:, :, None]
+    npair, k = src.shape
     gram = torch.zeros((npair, npair), dtype=c_rows.dtype, device=c_rows.device)
-    for b0 in range(0, c_rows.shape[1], col_block):
-        f = (sgn * c_rows[:, b0 : b0 + col_block][src]).reshape(npair, -1)
-        gram += f @ f.T
+    for k0 in range(0, k, k_block):
+        idx = src[:, k0 : k0 + k_block].long()
+        sgn = sign[:, k0 : k0 + k_block].to(c_rows.dtype)[:, :, None]
+        for b0 in range(0, c_rows.shape[1], col_block):
+            f = (sgn * c_rows[:, b0 : b0 + col_block][idx]).reshape(npair, -1)
+            gram += f @ f.T
     return gram
 
 
@@ -161,14 +161,17 @@ def make_rdms(
     _, src_hb, sign_hb = linktab.build_desdes_tables(strs_b_packed, norb, n_b, device=c.device)
 
     def samespin_gram(src, sign, c_rows):
-        k = src.shape[1]
+        npair, k = src.shape
         x = c_rows.shape[1]
-        blk = pick_block(x, src.shape[0] * k * itemsize)
+        # the int64 sources of one chunk stay within block_bytes too; the
+        # column block is sized for the chunk's intermediates, not all K
+        k_block = max(1, min(k, max(block_bytes, 1) // (npair * 8)))
+        blk = pick_block(x, npair * k_block * itemsize)
         if blk == 0:
-            return _samespin_dm2_from_holes(src, sign, c_rows)
+            return _samespin_dm2_from_holes(src, sign, c_rows, max(x, 1), k_block)
         x_pad = -(-x // blk) * blk
         c_p = torch.nn.functional.pad(c_rows, (0, x_pad - x))
-        return _samespin_dm2_from_holes_blocked(src, sign, c_p, blk)
+        return _samespin_dm2_from_holes(src, sign, c_p, blk, k_block)
 
     gram_a = samespin_gram(src_ha, sign_ha, c)
     gram_b = samespin_gram(src_hb, sign_hb, c.T)

@@ -14,7 +14,8 @@ its keyword arguments passed through.
 
 Complex operators are solved in complex128 directly: none of ``sqd_tpu``'s
 TPU workarounds (the real embedding and its recovery for ``k > 1``, the
-segmented Davidson, the HBM budget for the f64 stage) is ported.
+segmented Davidson in place of the unsegmented one, the HBM budget for the
+f64 stage) is taken here.
 """
 
 from __future__ import annotations

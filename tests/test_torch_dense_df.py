@@ -153,6 +153,41 @@ def test_davidson_ground_state():
     assert abs(r_dense.theta - float(r_jax.theta)) < 1e-8
 
 
+SEGMENTED = {"converges": dict(tol=1e-9, max_iterations=200),
+             "capped": dict(tol=1e-12, max_iterations=10)}
+
+
+@pytest.mark.parametrize("case", list(SEGMENTED))
+def test_davidson_ground_state_segmented(case):
+    """``davidson_ground_state_segmented`` against ``sqd_tpu``'s on
+    ``tests/test_dense_df.py``'s operator (7-iteration segments): the same
+    energy within 1e-10 Ha and the same iteration count, converged or capped
+    at ``max_iterations``."""
+    from sqd_tpu.ops.davidson import davidson_ground_state_segmented as jax_segmented
+    from sqd_tpu.ops.davidson import davidson_initial_guess as jax_guess
+
+    from sqd_tpu_torch.ops.davidson import davidson_ground_state_segmented
+
+    kwargs = dict(max_subspace=20, segment_iterations=7, **SEGMENTED[case])
+    ham_j, ham_t = _both(10, (5, 5), 36, 36, seed=11)
+    op = dense_df.densify(ham_t, dtype=torch.float64)
+    hd = op.hdiag.reshape(-1)
+    res = davidson_ground_state_segmented(dense_df.dense_df_matvec_flat, op, hd,
+                                          davidson_initial_guess(hd, torch.float64), **kwargs)
+    op_j = jax_dense_df.densify(ham_j, dtype=jnp.float64)
+    hd_j = op_j.hdiag.reshape(-1)
+    ref = jax_segmented(jax_dense_df.dense_df_matvec_flat, op_j, hd_j,
+                        jax_guess(hd_j, jnp.float64), **kwargs)
+    assert abs(res.theta - float(ref.theta)) < 1e-10
+    assert res.iterations == int(ref.iterations)
+    assert res.converged == bool(ref.converged)
+    if case == "converges":
+        assert res.converged and res.iterations > 7  # it took several segments
+    else:
+        assert res.iterations == 10 and not res.converged
+    np.testing.assert_allclose(abs(float(torch.dot(res.vector, res.vector))), 1.0, atol=1e-12)
+
+
 @pytest.mark.parametrize("pad_to", [None, (32, 40)], ids=["same_pads", "mismatched_pads"])
 def test_densify_aliases_wb_for_identical_sets(pad_to):
     """``sa == sb``: ``wb`` is the very tensor ``wa`` is, also when the two

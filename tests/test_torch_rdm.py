@@ -1,6 +1,7 @@
 # (C) 2026. Licensed under the Apache License, Version 2.0.
 """The port's RDMs and RDM energy against ``sqd_tpu`` (``<= 1e-10`` absolute),
-unblocked and with blocking forced (``block_bytes=0``)."""
+unblocked, with blocking forced (``block_bytes=0``) and with the same-spin
+Grams over chunks of intermediates."""
 
 import numpy as np
 import pytest
@@ -35,7 +36,10 @@ def state():
     return pa, pb, c, a + a.T, e + e.transpose(2, 3, 0, 1)
 
 
-@pytest.mark.parametrize("block_bytes", [128 * 1024**2, 0], ids=["unblocked", "blocked"])
+# "chunked": the same-spin Grams run over chunks of 3 two-hole intermediates
+# (their int64 sources within block_bytes), each over column blocks
+@pytest.mark.parametrize("block_bytes", [128 * 1024**2, 0, NORB * NORB * 8 * 3],
+                         ids=["unblocked", "blocked", "chunked"])
 @pytest.mark.parametrize("spin_resolved", [False, True], ids=["summed", "spin_resolved"])
 def test_make_rdms_matches(state, block_bytes, spin_resolved):
     pa, pb, c, _, _ = state
@@ -110,7 +114,7 @@ def test_desdes_tables_match(state, case, monkeypatch):
             linktab, "DESDES_BATCH_BYTES", pairs_per_batch * len(inter_j) * (5 + 2 * w) * 8
         )
     inter, src, sign = linktab.build_desdes_tables(strs, norb, nelec_spin, device="cpu")
-    assert src.dtype == torch.int64 and sign.dtype == torch.int8
+    assert src.dtype == torch.int32 and sign.dtype == torch.int8  # as sqd_tpu's
     assert src.shape == sign.shape == (norb * norb, len(inter_j))
     np.testing.assert_array_equal(inter, inter_j)
     sign_j = np.asarray(sign_j)

@@ -192,7 +192,15 @@ Phases, each printing one line; any failure exits non-zero:
    (36 orbitals, two-word strings) by ``solve_sci``'s gather route in f32:
    the kernel launched, the energy within 1e-7 Ha of the example's f64
    energy, and the kernel against its plain version on that operator, timed
-   beside its bound.
+   beside its bound;
+15. ``bench_torch.py``'s two qubit sections at full size, through its own
+   section functions (:func:`bench_qubit_phase`): the 88-term L = 22
+   Heisenberg ring over 10^6 strings (per-term tables against the grouped
+   build, one grouped matvec) and over 49,718 strings (build plus one matvec
+   of ones), each section's seconds printed, 23 x-groups, and each grouped
+   matvec's ``<v|H|v>/<v|v>`` in f64 on the card within 1e-9 relative of
+   :func:`pauli_host_energy` on the same strings and vector.  This path
+   reaches no Pallas kernel in ``sqd_tpu``: the kernel's count must stay 0.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -290,6 +298,8 @@ TOL_WORLDS = 1e-8  # Ha, (b)'s two ranks against (c)'s one
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
+# phase 15: bench_torch.py's qubit sections, held to the host quotient
+TOL_BENCH_QUBIT = 1e-9  # relative
 
 
 def fail(msg: str) -> None:
@@ -2263,6 +2273,49 @@ def parallel_phase(dev, smi, h1, eri, ecore, it0, t_loop, strs_a, strs_b, e_head
     return launches_a, timing
 
 
+def bench_qubit_phase(dev, smi) -> None:
+    """Phase 15: ``bench_torch.py``'s sections 4 and 5 at full size, their
+    grouped matvecs held to :func:`pauli_host_energy`."""
+    import torch
+
+    import bench_torch
+    from sqd_tpu_torch.ops import cross_spin
+    from sqd_tpu_torch.ops.pauli_proj import pauli_apply_flat
+
+    sections = (("88-term grouped projection", bench_torch.multiterm_section, 1_000_000),
+                ("66-term Heisenberg projection", bench_torch.heisenberg_section, 49_718))
+    for name, section, d in sections:
+        cross_spin.cross_spin_matvec.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        detail, run = section(dev)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = cross_spin.cross_spin_matvec.launches
+        v = run.vector
+        hv = pauli_apply_flat(run.proj, v)
+        e_card = float(torch.dot(v, hv) / torch.dot(v, v))
+        e_host = pauli_host_energy(run.ints, run.op.paulis, run.op.coeffs, v.cpu().numpy())
+        rel = abs(e_card - e_host) / abs(e_host)
+        timings = ", ".join(f"{k} {val:.4f} s" for k, val in detail.items() if k.endswith("seconds"))
+        print(f"bench {name}, d = {detail['dim']}, {detail['terms']} terms ({smi}): {timings}; "
+              f"section {secs:.2f} s; checksum {detail['checksum']!r}; {run.proj.num_groups} "
+              f"x-groups; <v|H|v>/<v|v> {e_card:.12f} on the card, {e_host:.12f} on the host "
+              f"(relative {rel:.3e}, gate {TOL_BENCH_QUBIT:.0e}); kernel launches {launches}",
+              flush=True)
+        checks = {
+            f"d = {d}": detail["dim"] == d,
+            "88 terms in 23 x-groups": detail["terms"] == 88 and run.proj.num_groups == 23,
+            "the grouped matvec's quotient within 1e-9 of the host's": rel < TOL_BENCH_QUBIT,
+            "no cross-spin kernel on the qubit path": launches == 0,
+        }
+        for what, ok in checks.items():
+            if not ok:
+                fail(f"bench {name}: {what}")
+        del detail, run, v, hv
+        torch.cuda.empty_cache()
+
+
 def examples_phase(dev, smi) -> tuple[dict, float]:
     """Phase 14 (a): every port example at its guide size on the card, with
     the port's own recovery noise.  Its ``exact`` and ``time`` lines must
@@ -2606,6 +2659,12 @@ def main() -> None:
     slowest = max(example_seconds, key=example_seconds.get)
     print(f"examples: {t14[2] - t14[0]:.1f} s: (a) {t14[1] - t14[0]:.1f} s (slowest {slowest} "
           f"{example_seconds[slowest]:.1f} s), (b) {t14[2] - t14[1]:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+
+    # -- 15. bench_torch.py's qubit sections at full size, against the host
+    t0 = time.perf_counter()
+    bench_qubit_phase(dev, smi)
+    print(f"bench qubit sections: {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -17,6 +17,8 @@ It prints one line, the batch energies and then each mode's energy beside
 the local one, and returns every rank's results.  Run it as::
 
     python -c "from sqd_tpu_torch.parallel.dryrun import dryrun_multichip; dryrun_multichip(4)"
+
+on the cards, or with ``dryrun_multichip(4, device="cpu")`` on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import traceback
 
 import numpy as np
 import torch
+
+from ..utils.device import checked_device
 
 __all__ = ["dryrun_multichip"]
 
@@ -122,18 +126,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(world_size: int, *, backend: str | None = None) -> list[dict]:
+def dryrun_multichip(world_size: int, *, device="cuda", backend: str | None = None
+                     ) -> list[dict]:
     """Run the modes on ``world_size`` spawned ranks; print the summary line.
 
-    ``backend``: ``"nccl"`` (one rank per card; the default where CUDA is
-    available) or ``"gloo"`` (the default on the CPU; with CUDA available the
-    ranks still compute on the cards, ``rank % card count``, and gloo carries
-    the collectives of CUDA tensors).  Returns each rank's results, in rank
-    order.  Raises ``RuntimeError`` with a rank's traceback if any rank
-    fails, and when ``RANK_TIMEOUT`` seconds pass without every rank's
+    ``device``: ``"cuda"`` (the ranks compute on the cards, ``rank % card
+    count``; with no card the call raises before any rank is spawned) or
+    ``"cpu"``.  ``backend``: ``"nccl"`` (one rank per card; the default on
+    the cards) or ``"gloo"`` (the default on the CPU; on the cards gloo
+    carries the collectives of CUDA tensors).  Returns each rank's results,
+    in rank order.  Raises ``RuntimeError`` with a rank's traceback if any
+    rank fails, and when ``RANK_TIMEOUT`` seconds pass without every rank's
     result; no rank process outlives the call.
     """
-    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type = checked_device(device).type
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()

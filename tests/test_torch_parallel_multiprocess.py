@@ -225,8 +225,22 @@ def test_dryrun_multichip(capsys):
     mode, with the port's ``solve_sci`` on the same system."""
     from sqd_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    ranks = dryrun_multichip(2)
+    ranks = dryrun_multichip(2, device="cpu")
     assert "dryrun_multichip OK: 2 ranks (gloo, cpu)" in capsys.readouterr().out
     assert ranks[0] == ranks[1] and len(ranks[0]["batch"]) == 2
     for mode in ("distributed", "row", "grid", "df"):
         assert abs(ranks[0][mode] - ranks[0]["local"]) <= 1e-6
+
+
+def test_dryrun_multichip_defaults_to_the_card(monkeypatch):
+    """With no card, the default ``device="cuda"`` raises before any rank
+    process is started: no quiet run on the CPU."""
+    from sqd_tpu_torch.parallel import dryrun
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a rank process was started")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun.multiprocessing, "get_context", no_spawn)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.dryrun_multichip(1)

@@ -41,8 +41,9 @@ The sections, in ``bench.py``'s order, each a function of its own:
    build from host strings plus one matvec of ones, warm;
 6. :func:`config5_section` — BASELINE config 5, the (54e,36o) synthetic PSD
    integrals (seed 7), 3163 strings per spin: ``build_sci_hamiltonian``,
-   ``dense_df.densify`` (f32) and the dense-DF f32 Davidson (tol 1e-4,
-   max_subspace 12, 200 iterations).  Gate: the f64 energy of the vector
+   ``dense_df.densify`` (f32) and the dense-DF f32 Davidson in 25-iteration
+   segments (``davidson_ground_state_segmented``: tol 1e-4, max_subspace 12,
+   200 iterations).  Gate: the f64 energy of the vector
    within 5e-3 Ha of the Ritz value.
 
 Small mode runs 60 x 60 strings, d = 2e5, 5e4 and 5e3, and 96 config-5
@@ -70,7 +71,11 @@ import torch
 from sqd_tpu_torch import chem, native, qubit
 from sqd_tpu_torch.models.heisenberg import heisenberg_ring
 from sqd_tpu_torch.ops import bitpack, cross_spin
-from sqd_tpu_torch.ops.davidson import davidson_ground_state, davidson_initial_guess
+from sqd_tpu_torch.ops.davidson import (
+    davidson_ground_state,
+    davidson_ground_state_segmented,
+    davidson_initial_guess,
+)
 from sqd_tpu_torch.ops.dense_df import dense_df_matvec_flat, densify
 from sqd_tpu_torch.ops.dense_fci import all_hamming_strings
 from sqd_tpu_torch.ops.hamiltonian import (
@@ -129,14 +134,16 @@ def excitation_strings(count, norb, n_elec, seed):
     return np.array(sorted(seen), dtype=np.int64)
 
 
-def host_f64_energy(ham, vec_flat: np.ndarray) -> float:
+def host_f64_energy(ham, vec, row_block=32) -> float:
     """True f64 Rayleigh quotient <c|H|c>/<c|c> on the HOST (NumPy/BLAS).
 
     ``bench.py``'s oracle: it reads the operator's own gather tables and
-    neighbour lists and none of the port's operator code.
+    neighbour lists and none of the port's operator code.  The opposite-spin
+    pair Gram is accumulated over blocks of ``row_block`` alpha rows (at 28
+    orbitals the whole Gram's operands would take 12 GB of host memory).
     """
     m, n = ham.shape
-    c = vec_flat.reshape(m, n)
+    c = np.asarray(vec, np.float64).reshape(m, n)
     c = c / np.linalg.norm(c)
     src_a = ham.src_a.cpu().numpy()
     sign_a = ham.sign_a.cpu().numpy().astype(np.float64)
@@ -145,9 +152,15 @@ def host_f64_energy(ham, vec_flat: np.ndarray) -> float:
     eri_t = ham.eri_t.cpu().numpy().astype(np.float64)
     npair = eri_t.shape[0]
     # cross-spin: pab[pq, rs] = <E^a_pq c, E^b_rs c>
-    d_a = (sign_a[:, :, None] * c[src_a]).reshape(npair, -1)  # (npair, m*n)
-    d_b = np.swapaxes(np.take(c, src_b, axis=1), 0, 1) * sign_b[:, None, :]
-    pab = d_a @ d_b.reshape(npair, -1).T
+    pab = np.zeros((npair, npair))
+    for i0 in range(0, m, row_block):
+        rows = slice(i0, i0 + row_block)
+        # pairs with no valid entry in these rows contribute nothing
+        live = np.flatnonzero(np.any(sign_a[:, rows] != 0, axis=1))
+        d_a = (sign_a[live, rows, None] * c[src_a[live, rows]]).reshape(len(live), -1)
+        d_b = np.swapaxes(np.take(c[rows], src_b, axis=1), 0, 1) * sign_b[:, None, :]
+        pab[live] += d_a @ d_b.reshape(npair, -1).T
+        del d_a, d_b
     e = float(np.sum(eri_t * pab.T))
     # same-spin channels via Gram matrices
     gram_r = c @ c.T
@@ -443,8 +456,10 @@ def heisenberg_section(device, d=49_718) -> tuple[dict, PauliRun]:
 
 
 def config5_problem(strings=3163):
-    """``bench.py``'s BASELINE config 5 from its seeds: ``(h1, eri, packed)``
-    for 36 orbitals and 27 electrons per spin; the strings serve both spins."""
+    """``bench.py``'s BASELINE config 5 from its seeds: ``(h1, eri, strs)``
+    for 36 orbitals and 27 electrons per spin, with a near-diagonal ``h1``,
+    PSD ``eri`` from a random symmetric factor of rank 108, and ``strings``
+    excitation strings (int64, ascending) that serve both spins."""
     norb, nelec = 36, 27
     rng = np.random.default_rng(7)
     h1 = np.diag(np.linspace(-14.0, 4.0, norb)) + 0.05 * rng.normal(size=(norb, norb))
@@ -452,15 +467,15 @@ def config5_problem(strings=3163):
     chol = rng.normal(size=(3 * norb, norb, norb)) * (0.5 / np.sqrt(3 * norb))
     chol = (chol + chol.transpose(0, 2, 1)) / 2
     eri = np.einsum("xpq,xrs->pqrs", chol, chol)
-    packed = bitpack.pack_ints(excitation_strings(strings, norb, nelec, 1), norb)
-    return h1, eri, packed
+    return h1, eri, excitation_strings(strings, norb, nelec, 1)
 
 
 def config5_section(device, strings=3163) -> dict:
     """Section 6 (``bench.py:596-680``): the dense density-fitted f32 solve."""
     device = checked_device(device)
     norb, nelec = 36, (27, 27)
-    h1, eri, packed = config5_problem(strings)
+    h1, eri, strs = config5_problem(strings)
+    packed = bitpack.pack_ints(strs, norb)
 
     def build():
         ham64 = build_sci_hamiltonian(packed, packed, h1, eri, norb, nelec, dtype=torch.float64,
@@ -473,8 +488,10 @@ def config5_section(device, strings=3163) -> dict:
     def solve():
         with highest_precision():
             v0 = davidson_initial_guess(hd32, torch.float32)
-            return davidson_ground_state(dense_df_matvec_flat, op, hd32, v0, tol=1e-4,
-                                         max_subspace=12, max_iterations=200)
+            # bench.py:651's solver and arguments
+            return davidson_ground_state_segmented(dense_df_matvec_flat, op, hd32, v0,
+                                                   tol=1e-4, max_subspace=12,
+                                                   max_iterations=200)
 
     solve()  # warm-up
     t_solve, res = _timed(device, solve)

@@ -76,8 +76,10 @@ Phases, each printing one line; any failure exits non-zero:
    (b) ``solve_qubit_device(tol=1e-6)`` with its defaults on
    ``probes/qubit_solve_1e7.py``'s 26-site Heisenberg ring over the d = 1e7
    strings of :func:`solve_strings`: packed weights and the group loop, an
-   f32 then an f64 Davidson, the energy within 1e-7 of a NumPy host-f64
-   Rayleigh quotient (:func:`pauli_host_energy`) and within 1e-6 of the
+   f32 then an f64 Davidson, each in 25-iteration segments as ``sqd_tpu``'s
+   (each stage's iterations and segments printed), the energy within 1e-7
+   of a NumPy host-f64 Rayleigh quotient (:func:`pauli_host_energy`) and
+   within 1e-6 of the
    ``sqd_tpu`` record ``sqd_tpu_torch/data/qubit_heisenberg26_1e7.json``
    (``tools/make_qubit_data.py``); one f32 and one f64 matvec timed beside
    their byte bound; (c) ``solve_qubit_device(k=3)`` on a 20-site ring with
@@ -86,7 +88,7 @@ Phases, each printing one line; any failure exits non-zero:
    orthonormal columns.  This path reaches no Pallas kernel in ``sqd_tpu``,
    so it has no CUDA kernel and no entry in the kernels' record;
 10. dense density-fitted solve — BASELINE config 5, ``bench.py``'s (54e,36o)
-   problem made here from its seed (:func:`config5_problem`: 36 orbitals,
+   problem made from its seed (``bench_torch.config5_problem``: 36 orbitals,
    27 + 27 electrons, synthetic PSD integrals of rank 108, the same 3163
    two-word excitation strings for both spins, 10,004,569 determinants,
    padded 3168 x 3200, npair 1296).  (a) the operator: ``eri_factor="auto"``
@@ -103,7 +105,8 @@ Phases, each printing one line; any failure exits non-zero:
    padded width), with ``x_chunk`` 8 and the whole stack; ``densify``'s
    seconds, the W-stack bytes and the peak memory; (c) ``solve_sci`` with
    ``CONFIG5_SOLVER`` by ``matvec_strategy="gather"`` (must launch the
-   kernel) and ``"dense_df"`` (must launch none): each energy within 1e-7 Ha
+   kernel) and ``"dense_df"`` (must launch none; its f32 Davidson runs in
+   segments, as ``sqd_tpu``'s): each energy within 1e-7 Ha
    of :func:`device_f64_energy` (the host quotient transcribed to torch f64
    on the card, from the tables alone), the two within 1e-3 Ha, both
    Davidsons converged; and both routes on the first 512 strings per spin
@@ -199,8 +202,14 @@ Phases, each printing one line; any failure exits non-zero:
    build, one grouped matvec) and over 49,718 strings (build plus one matvec
    of ones), each section's seconds printed, 23 x-groups, and each grouped
    matvec's ``<v|H|v>/<v|v>`` in f64 on the card within 1e-9 relative of
-   :func:`pauli_host_energy` on the same strings and vector.  This path
-   reaches no Pallas kernel in ``sqd_tpu``: the kernel's count must stay 0.
+   :func:`pauli_host_energy` on the same strings and vector; then its
+   config-5 section at full size (``bench.py``'s segmented dense-DF f32
+   solve, tol 1e-4, max_subspace 12, 200 iterations): converged below tol
+   in fewer than 200 iterations, the f64 energy within 5e-3 Ha of the Ritz
+   value (``bench.py``'s gate) and within 1e-6 Ha of phase 10's gather
+   route; its seconds, iterations, segments and residual printed.  Neither
+   path reaches a Pallas kernel in ``sqd_tpu``: the kernel's count must stay
+   0.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -218,6 +227,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
+try:  # bench.py's string walk, config-5 problem and host oracle, as bench_torch.py keeps them
+    from bench_torch import config5_problem, excitation_strings, host_f64_energy
+except ImportError as exc:
+    print(f"chip_smoke: FAIL: bench_torch.py and sqd_tpu_torch are not beside this script "
+          f"({exc})", flush=True)
+    raise SystemExit(1) from None
 DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
 TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
 TOL_ENERGY = 1e-7  # Ha
@@ -251,8 +266,7 @@ QUBIT_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "qubit_heisenberg26_1e7
 QUBIT_SOLVE = {"sites": 26, "h_z": 0.1, "d": 10_000_000, "seed": 7, "tol": 1e-6}
 QUBIT_K = {"sites": 20, "dm": 0.3, "d": 200_000, "seed": 8, "k": 3}
 # phase 10: BASELINE config 5, bench.py's (54e,36o) problem, by both solve routes
-CONFIG5 = {"norb": 36, "nelec": (27, 27), "strings": 3163, "rank": 108,
-           "integral_seed": 7, "string_seed": 1}
+CONFIG5 = {"norb": 36, "nelec": (27, 27), "strings": 3163}
 CONFIG5_SOLVER = {"tol": 1e-4, "max_subspace": 12, "max_cycle": 200,  # bench.py's
                   "with_rdms": False, "refine_iterations": 0}
 CONFIG5_SUB = 512  # strings per spin of the sub-shape held against the NumPy quotient
@@ -298,36 +312,16 @@ TOL_WORLDS = 1e-8  # Ha, (b)'s two ranks against (c)'s one
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
-# phase 15: bench_torch.py's qubit sections, held to the host quotient
+# phase 15: bench_torch.py's qubit sections, held to the host quotient,
 TOL_BENCH_QUBIT = 1e-9  # relative
+# and its config-5 section (tol 1e-4) against phase 10's gather route (solve_sci's
+# scaled tol): each f64 energy within r^2 / gap of the exact one
+TOL_BENCH_CONFIG5 = 1e-6  # Ha
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     raise SystemExit(1)
-
-
-def excitation_strings(count, norb, n_elec, seed):
-    """HF determinant + a random walk of low-order excitations (as ``bench.py``)."""
-    import numpy as np
-
-    r = np.random.default_rng(seed)
-    hf = (1 << n_elec) - 1
-    seen = {hf}
-    frontier = [hf]
-    while len(seen) < count:
-        base = frontier[r.integers(len(frontier))] if frontier else hf
-        occ = [p for p in range(norb) if (base >> p) & 1]
-        virt = [p for p in range(norb) if not (base >> p) & 1]
-        o = occ[r.integers(len(occ))]
-        v = virt[r.integers(len(virt))]
-        new = base ^ (1 << o) ^ (1 << v)
-        if new not in seen:
-            seen.add(new)
-            frontier.append(new)
-            if len(frontier) > 64:
-                frontier.pop(0)
-    return np.array(sorted(seen), dtype=np.int64)
 
 
 def all_strings(norb, n_elec):
@@ -419,24 +413,6 @@ def dm_ring_terms(n, dm):
     return terms
 
 
-def config5_problem(count=CONFIG5["strings"]):
-    """``bench.py``'s BASELINE config 5 from its seeds: ``(h1, eri, strings)``
-    for 36 orbitals and 27 electrons per spin, with a near-diagonal ``h1``,
-    PSD ``eri`` from a random symmetric factor of rank 108, and ``count``
-    excitation strings (int64, ascending) that serve both spins."""
-    import numpy as np
-
-    norb, rank = CONFIG5["norb"], CONFIG5["rank"]
-    rng = np.random.default_rng(CONFIG5["integral_seed"])
-    h1 = np.diag(np.linspace(-14.0, 4.0, norb)) + 0.05 * rng.normal(size=(norb, norb))
-    h1 = (h1 + h1.T) / 2
-    chol = rng.normal(size=(rank, norb, norb)) * (0.5 / np.sqrt(rank))
-    chol = (chol + chol.transpose(0, 2, 1)) / 2
-    eri = np.einsum("xpq,xrs->pqrs", chol, chol)
-    strs = excitation_strings(count, norb, CONFIG5["nelec"][0], CONFIG5["string_seed"])
-    return h1, eri, strs
-
-
 def device_f64_energy(ham, vec, row_block=64) -> float:
     """:func:`host_f64_energy` transcribed to torch f64 on the operator's
     device, for shapes where the NumPy pair Gram would take minutes: the
@@ -466,43 +442,6 @@ def device_f64_energy(ham, vec, row_block=64) -> float:
     e += torch.sum(ham.nbr_val_b.to(torch.float64)
                    * gram_c[ham.nbr_idx_b, torch.arange(n, device=dev)[:, None]])
     return float(e)
-
-
-def host_f64_energy(ham, vec, row_block=32) -> float:
-    """True f64 Rayleigh quotient <c|H|c>/<c|c> in NumPy from the operator's
-    own tables (as ``bench.py``'s ``_host_f64_energy``), the opposite-spin
-    pair Gram accumulated over blocks of ``row_block`` alpha rows (at 28
-    orbitals the whole Gram's operands would take 12 GB of host memory)."""
-    import numpy as np
-
-    m, n = ham.shape
-    c = np.asarray(vec, np.float64).reshape(m, n)
-    c = c / np.linalg.norm(c)
-    src_a = ham.src_a.cpu().numpy()
-    sign_a = ham.sign_a.cpu().numpy().astype(np.float64)
-    src_b = ham.src_b.cpu().numpy()
-    sign_b = ham.sign_b.cpu().numpy().astype(np.float64)
-    eri_t = ham.eri_t.cpu().numpy().astype(np.float64)
-    npair = eri_t.shape[0]
-    pab = np.zeros((npair, npair))
-    for i0 in range(0, m, row_block):
-        rows = slice(i0, i0 + row_block)
-        # pairs with no valid entry in these rows contribute nothing
-        live = np.flatnonzero(np.any(sign_a[:, rows] != 0, axis=1))
-        d_a = (sign_a[live, rows, None] * c[src_a[live, rows]]).reshape(len(live), -1)
-        d_b = np.swapaxes(np.take(c[rows], src_b, axis=1), 0, 1) * sign_b[:, None, :]
-        pab[live] += d_a @ d_b.reshape(npair, -1).T
-        del d_a, d_b
-    e = float(np.sum(eri_t * pab.T))
-    gram_r = c @ c.T
-    gram_c = c.T @ c
-    idx_a = ham.nbr_idx_a.cpu().numpy()
-    val_a = ham.nbr_val_a.cpu().numpy().astype(np.float64)
-    e += float(np.sum(val_a * gram_r[idx_a, np.arange(m)[:, None]]))
-    idx_b = ham.nbr_idx_b.cpu().numpy()
-    val_b = ham.nbr_val_b.cpu().numpy().astype(np.float64)
-    e += float(np.sum(val_b * gram_c[idx_b, np.arange(n)[:, None]]))
-    return e
 
 
 def integral_digests(ints) -> dict:
@@ -642,6 +581,7 @@ class Probe:
         self.sparse_fills = 0
         self.davidson: list[tuple[str, int]] = []  # (stage, iterations) of each call
         self.davidson_runs: list[dict] = []  # converged, kernel launches of each call
+        self.segments: list[int] = []  # iterations of each segment of a segmented solve
         self.history: list[list] = []
         self._originals = []
 
@@ -750,7 +690,7 @@ class Probe:
         def davidson_stage(fn):
             def wrapper(matvec, operator, hdiag, v0, **kwargs):
                 stage = "f32 Davidson" if v0.dtype.itemsize == 4 else "f64 refinement"
-                launches = cross_spin.cross_spin_matvec.launches
+                launches, segments = cross_spin.cross_spin_matvec.launches, len(self.segments)
                 sync()
                 t0 = time.perf_counter()
                 out = fn(matvec, operator, hdiag, v0, **kwargs)
@@ -759,11 +699,29 @@ class Probe:
                 self.davidson.append((stage, out.iterations))
                 self.davidson_runs.append({
                     "converged": out.converged, "residual": out.residual_norm,
-                    "launches": cross_spin.cross_spin_matvec.launches - launches})
+                    "launches": cross_spin.cross_spin_matvec.launches - launches,
+                    "segments": len(self.segments) - segments})
                 return out
             return wrapper
 
         self.wrap(fermion, "davidson_ground_state", davidson_stage)
+        # the dense-DF route's f32 solve runs in segments, as sqd_tpu's
+        self.wrap(fermion, "davidson_ground_state_segmented", davidson_stage)
+        self.count_segments()
+
+    def count_segments(self):
+        """Count the segments of every segmented Davidson: the calls of
+        ``ops.davidson.davidson_ground_state`` that it makes by name."""
+        from sqd_tpu_torch.ops import davidson
+
+        def counted(fn):
+            def wrapper(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.segments.append(out.iterations)
+                return out
+            return wrapper
+
+        self.wrap(davidson, "davidson_ground_state", counted)
 
     def callback(self, results):
         self.history.append(results)
@@ -1145,7 +1103,7 @@ def qubit_solve_phase(dev, smi) -> None:
     if strings_digest(ints) != recorded["sha256_strings"]:
         fail("qubit solve: the strings differ from the recorded ones")
     op = heisenberg_ring(sites, h_z=QUBIT_SOLVE["h_z"])
-    davidson: list[tuple[str, int]] = []
+    davidson: list[tuple[str, int, int]] = []
     probe = Probe()
     probe.timed(qubit, "build_projected_operator", "operator build")
     probe.timed(pauli_proj, "_pair_cols", "membership (pairing sorts)")
@@ -1153,16 +1111,19 @@ def qubit_solve_phase(dev, smi) -> None:
     def stage(fn):
         def wrapper(matvec, operator, hdiag, v0, **kwargs):
             name = "f32 Davidson" if v0.dtype.itemsize == 4 else "f64 Davidson"
+            segments = len(probe.segments)
             sync()
             t0 = time.perf_counter()
             out = fn(matvec, operator, hdiag, v0, **kwargs)
             sync()
             probe.spans[-1][name] = time.perf_counter() - t0
-            davidson.append((name, out.iterations))
+            davidson.append((name, out.iterations, len(probe.segments) - segments))
             return out
         return wrapper
 
-    probe.wrap(qubit, "davidson_ground_state", stage)
+    # both stages run in segments, as sqd_tpu's
+    probe.wrap(qubit, "davidson_ground_state_segmented", stage)
+    probe.count_segments()
     try:
         torch.cuda.reset_peak_memory_stats()
         sync()
@@ -1191,7 +1152,8 @@ def qubit_solve_phase(dev, smi) -> None:
           f"{member_bound * 1e3:.3f} ms), "
           + ", ".join(f"{k} {span[k]:.3f} s" for k in ("f32 Davidson", "f64 Davidson")
                       if k in span)
-          + f"; Davidson (stage, iterations) {davidson}; peak device memory {peak:.2f} GB "
+          + f"; Davidson (stage, iterations, segments) {davidson}; peak device memory "
+          f"{peak:.2f} GB "
           f"({smi})", flush=True)
     print(f"qubit solve: energy {energy:.12f}, |E - host f64| {abs(energy - e_host):.3e} "
           f"(host quotient {t_host:.2f} s), |E - sqd_tpu| {abs(energy - recorded['energy']):.3e} "
@@ -1201,8 +1163,8 @@ def qubit_solve_phase(dev, smi) -> None:
         "membership by the pairing sorts": "membership (pairing sorts)" in span,
         "the recorded group count": proj.num_groups == recorded["num_groups"],
         "operator bytes equal the estimate": proj.memory_bytes == estimate,
-        "an f32 stage and an f64 stage ran": [s for s, _ in davidson] == ["f32 Davidson",
-                                                                          "f64 Davidson"],
+        "an f32 stage and an f64 stage ran": [s for s, _, _ in davidson] == ["f32 Davidson",
+                                                                             "f64 Davidson"],
         "energy within 1e-7 of the host f64 quotient": abs(energy - e_host) < TOL_ENERGY,
         "energy within 1e-6 of sqd_tpu's": abs(energy - recorded["energy"]) < 1e-6,
         "vector finite and normalized": bool(np.isfinite(vec).all())
@@ -1302,11 +1264,11 @@ def two_hole_tables(dev, smi, packed, norb, n_elec) -> None:
     torch.cuda.empty_cache()
 
 
-def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
+def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
     """Phase 10: BASELINE config 5 by the gather route and the dense
     density-fitted route.  Returns the kernel's launches in the gather solve,
     its times at this shape, its largest difference from the plain version
-    and the dense route's energy."""
+    and the dense and the gather route's energies."""
     import dataclasses
 
     import numpy as np
@@ -1446,8 +1408,9 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
         stages = ", ".join(f"{k} {span[k]:.3f} s"
                            for k in ("table builds + upload", *SOLVE_STAGES) if k in span)
         print(f"config 5 solve_sci [{strategy}, {count} strings per spin] ({smi}): "
-              f"{seconds:.3f} s; {stages}; Davidson {probe.davidson}, converged "
-              f"{run['converged']}, residual {run['residual']:.3e}, kernel launches in it "
+              f"{seconds:.3f} s; {stages}; Davidson {probe.davidson} in {run['segments']} "
+              f"segment(s), converged {run['converged']}, residual {run['residual']:.3e}, "
+              f"kernel launches in it "
               f"{run['launches']} ({launches} in the solve); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
         if not (len(probe.davidson_runs) == 1 and run["converged"]):
@@ -1514,7 +1477,8 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float]:
         fail("config 5: the two routes' energies differ")
     if results["dense_df"][1] != 0 or results["gather"][1] == 0:
         fail("config 5: the kernel must launch in the gather solve and not in the dense one")
-    return results["gather"][1], timing, err, results["dense_df"][0].energy
+    return (results["gather"][1], timing, err, results["dense_df"][0].energy,
+            results["gather"][0].energy)
 
 
 TOL_OO_ENERGY = 1e-6  # Ha, each outer iteration's solve against sqd_tpu's record
@@ -2273,9 +2237,11 @@ def parallel_phase(dev, smi, h1, eri, ecore, it0, t_loop, strs_a, strs_b, e_head
     return launches_a, timing
 
 
-def bench_qubit_phase(dev, smi) -> None:
+def bench_qubit_phase(dev, smi, e_gather5) -> None:
     """Phase 15: ``bench_torch.py``'s sections 4 and 5 at full size, their
-    grouped matvecs held to :func:`pauli_host_energy`."""
+    grouped matvecs held to :func:`pauli_host_energy`; then its section 6,
+    config 5's segmented dense-DF solve, held to phase 10's gather-route
+    energy ``e_gather5``."""
     import torch
 
     import bench_torch
@@ -2314,6 +2280,41 @@ def bench_qubit_phase(dev, smi) -> None:
                 fail(f"bench {name}: {what}")
         del detail, run, v, hv
         torch.cuda.empty_cache()
+
+    # section 6: the f32 dense-DF solve in segments (a warm-up, then the timed one)
+    cross_spin.cross_spin_matvec.launches = 0
+    with Probe() as probe:
+        probe.count_segments()
+        sync()
+        t0 = time.perf_counter()
+        detail = bench_torch.config5_section(dev)
+        sync()
+        secs = time.perf_counter() - t0
+    launches = cross_spin.cross_spin_matvec.launches
+    timed = probe.segments[len(probe.segments) // 2:]
+    gap = abs(detail["energy_f64_eval"] - e_gather5)
+    print(f"bench config 5, {detail['dim']} determinants ({smi}): table build "
+          f"{detail['table_build_seconds']:.3f} s, densify {detail['densify_seconds']:.3f} s, "
+          f"solve {detail['solve_seconds']:.3f} s (section {secs:.2f} s); "
+          f"{detail['iterations']} iterations in {len(timed)} segments {timed}, residual "
+          f"{detail['residual_norm']:.3e}; energy_f64_eval {detail['energy_f64_eval']:.10f} Ha, "
+          f"|E - theta| {detail['f64_eval_vs_theta_abs']:.3e} (gate "
+          f"{bench_torch.TOL_CONFIG5:.0e}), |E - phase 10's gather route| {gap:.3e} (gate "
+          f"{TOL_BENCH_CONFIG5:.0e}); kernel launches {launches}", flush=True)
+    checks = {
+        "converged (residual below tol 1e-4)": detail["residual_norm"] < 1e-4,
+        "fewer than 200 iterations": detail["iterations"] < 200,
+        "f64 energy within 5e-3 Ha of the Ritz value":
+            detail["f64_eval_vs_theta_abs"] < bench_torch.TOL_CONFIG5,
+        "f64 energy within 1e-6 Ha of phase 10's gather route": gap < TOL_BENCH_CONFIG5,
+        "the timed solve's segments sum to its iterations": sum(timed) == detail["iterations"],
+        "no cross-spin kernel on the dense route": launches == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            fail(f"bench config 5: {what}")
+    del detail
+    torch.cuda.empty_cache()
 
 
 def examples_phase(dev, smi) -> tuple[dict, float]:
@@ -2611,7 +2612,7 @@ def main() -> None:
 
     # -- 10. BASELINE config 5 by the gather and the dense density-fitted route
     t0 = time.perf_counter()
-    config5_launches, config5, config5_err, e_dense5 = dense_df_phase(dev, smi, rng)
+    config5_launches, config5, config5_err, e_dense5, e_gather5 = dense_df_phase(dev, smi, rng)
     print(f"config 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 11. the rest of the fermion API: orbital optimization, excited
@@ -2661,10 +2662,11 @@ def main() -> None:
           f"{example_seconds[slowest]:.1f} s), (b) {t14[2] - t14[1]:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
-    # -- 15. bench_torch.py's qubit sections at full size, against the host
+    # -- 15. bench_torch.py's qubit sections at full size, against the host;
+    # its config-5 section, against phase 10
     t0 = time.perf_counter()
-    bench_qubit_phase(dev, smi)
-    print(f"bench qubit sections: {time.perf_counter() - t0:.1f} s; the script "
+    bench_qubit_phase(dev, smi, e_gather5)
+    print(f"bench sections: {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -42,6 +42,7 @@ from .ops import bitpack
 from .ops import rdm as rdm_ops
 from .ops.davidson import (
     davidson_ground_state,
+    davidson_ground_state_segmented,
     davidson_initial_guess,
     davidson_initial_guess_k,
     davidson_lowest_k,
@@ -294,7 +295,9 @@ def solve_sci(
             matvec (in f32 through the cross-spin kernel); ``"dense_df"``
             iterates with the dense density-fitted operator
             (:mod:`sqd_tpu_torch.ops.dense_df`: batched matrix products, no
-            gathers; needs a PSD ERI factor and no spin penalty).  The f64
+            gathers; needs a PSD ERI factor and no spin penalty) through
+            :func:`~sqd_tpu_torch.ops.davidson.davidson_ground_state_segmented`
+            with its 25-iteration segments, as ``sqd_tpu`` does.  The f64
             refinement, the energy and the RDMs come from the exact operator
             either way; at very large ``norb`` each refine iteration costs a
             dense-ERI f64 matvec, so consider ``refine_iterations=0`` there.
@@ -354,7 +357,10 @@ def solve_sci(
                 "(see build_sci_hamiltonian(eri_factor=...))"
             )
         dense_op = densify(ham64, dtype=solver_dtype)
-        result = davidson_ground_state(
+        # in segments, as sqd_tpu's route: each segment restarts from the Ritz
+        # vector, which lets the f32 solve converge where the unsegmented one
+        # stalls at its cap (bench_torch.py's config 5)
+        result = davidson_ground_state_segmented(
             dense_df_matvec_flat, dense_op, hd_flat, v0,
             tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
         )

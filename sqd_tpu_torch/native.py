@@ -224,14 +224,17 @@ def samespin_values(strs_packed, h1e, eri, norb: int, nelec: int):
     return nbr, val
 
 
-def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int, *, algo: str = "auto"):
+def samespin_tables(
+    strs_packed, h1e, eri, norb: int, nelec: int, *, bucket: int = 8, algo: str = "auto"
+):
     """Compacted Slater-Condon neighbour lists ``(idx (n, L) int32, val (n, L) f64)``.
 
-    ``sqd_tpu.native.samespin_tables``, bit for bit, with its two algorithms:
+    ``sqd_tpu.native.samespin_tables``, bit for bit, with its two algorithms;
+    either way ``L`` is the most neighbours of any string rounded up to a
+    multiple of ``bucket`` (at least ``bucket``), capped at ``width_full``:
 
     * ``"enum"``: every one of the ``width_full`` candidate excitations of
-      each string, binary-searched in the set, then compacted to a width
-      bucketed by 8;
+      each string, binary-searched in the set, then compacted;
     * ``"sparse"``: two strings are singly (doubly) connected iff they share
       a one-hole (two-hole) core, so sorting the cores groups exactly the
       connected pairs; the work follows the output, not ``width_full``.
@@ -249,7 +252,7 @@ def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int, *, algo: str =
     if algo == "sparse" or (algo == "auto" and n * width_full > 4_000_000):
         counts = np.empty(n, dtype=np.int64)
         most = int(lib.samespin_sparse_count(strs_packed, n, w, norb, nelec, h1c, eric, counts))
-        width = min(width_full, max(8, -(-most // 8) * 8))
+        width = min(width_full, max(bucket, -(-most // bucket) * bucket))
         idx = np.zeros((n, width), dtype=np.int32)
         val = np.zeros((n, width), dtype=np.float64)
         lib.samespin_sparse_fill(strs_packed, n, w, norb, nelec, h1c, eric, idx, val, width)
@@ -257,7 +260,7 @@ def samespin_tables(strs_packed, h1e, eri, norb: int, nelec: int, *, algo: str =
     idx = np.empty((n, width_full), dtype=np.int32)
     val = np.empty((n, width_full), dtype=np.float64)
     lib.samespin_candidates(strs_packed, n, w, norb, nelec, h1c, eric, idx, val, width_full)
-    return compact_neighbours(idx, val)
+    return compact_neighbours(idx, val, bucket)
 
 
 def compact_neighbours(idx: np.ndarray, val: np.ndarray, bucket: int = 8):

@@ -80,17 +80,23 @@ def sort_packed(packed: np.ndarray) -> np.ndarray:
     return packed[_lex_order(packed)]
 
 
-def unique_packed(packed: np.ndarray, return_counts: bool = False):
-    """Sorted unique rows of a packed matrix (and, optionally, their counts)."""
+def unique_packed(packed: np.ndarray, return_index: bool = False, return_counts: bool = False):
+    """Sorted unique rows of a packed matrix and, optionally, the index of each
+    one's first occurrence in ``packed`` (as ``np.unique``'s) and its count,
+    in that order."""
     packed = np.asarray(packed, dtype=np.uint32)
     order = _lex_order(packed)
     s = packed[order]
     keep = np.ones(len(s), dtype=bool)
     if len(s):
         keep[1:] = np.any(s[1:] != s[:-1], axis=1)
-    if not return_counts:
-        return s[keep]
-    return s[keep], np.diff(np.append(np.flatnonzero(keep), len(s)))
+    starts = np.flatnonzero(keep)
+    results = [s[keep]]
+    if return_index:
+        results.append(np.minimum.reduceat(order, starts) if len(s) else np.zeros(0, np.int64))
+    if return_counts:
+        results.append(np.diff(np.append(starts, len(s))))
+    return results[0] if len(results) == 1 else tuple(results)
 
 
 def pack_ints(ints: np.ndarray, nbits: int) -> np.ndarray:
@@ -110,6 +116,11 @@ def pack_ints(ints: np.ndarray, nbits: int) -> np.ndarray:
                 np.uint32
             )
     return out
+
+
+def ints_to_packed(ints, nbits: int) -> np.ndarray:
+    """:func:`pack_ints` of a list or array of integers."""
+    return pack_ints(np.asarray(ints, dtype=object if nbits >= 63 else np.int64), nbits)
 
 
 def unpack_to_ints(packed: np.ndarray, nbits: int | None = None) -> np.ndarray:

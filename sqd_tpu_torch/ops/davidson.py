@@ -23,9 +23,10 @@ the Krylov buffers stay sharded.  :func:`davidson_initial_guess_sharded` is
 the start vector of such a solve.  Without a group nothing is communicated.
 
 :func:`davidson_ground_state_segmented` relaunches the lowest-pair solver in
-segments, as ``sqd_tpu``'s does.  The TPU workarounds of ``sqd_tpu``
-(Jacobi / hybrid eigensolvers, the elementwise-f64 row combinations) are not
-ported: the card has true f64 arithmetic.
+segments, as ``sqd_tpu``'s does, and runs where ``sqd_tpu`` runs it.  The
+TPU workarounds of ``sqd_tpu`` (Jacobi / hybrid eigensolvers, the
+elementwise-f64 row combinations) are not ported: the card has true f64
+arithmetic.
 """
 
 from __future__ import annotations
@@ -246,10 +247,11 @@ def davidson_ground_state_segmented(
     until a segment converges or ends early (a stall, or the precision
     floor), or the segments' iterations reach ``max_iterations``; the count
     returned is capped at ``max_iterations``.  ``sqd_tpu`` bounds the length
-    of one device program this way; on the card a segment boundary is only a
-    restart, so the result differs from the unsegmented solve's in its
-    iteration count, not past ``tol``.  ``group`` as in
-    :func:`davidson_ground_state`.
+    of one device program this way, but the restart also changes the solve:
+    an f32 solve that stalls just above ``tol`` unsegmented can converge in
+    segments (``bench_torch.py``'s config 5 at 96 x 96 strings: the cap of
+    200 iterations unsegmented, 26 in segments).  Each segment costs one host sync and one more matvec
+    (the restart vector's).  ``group`` as in :func:`davidson_ground_state`.
     """
     total = 0
     v = v0

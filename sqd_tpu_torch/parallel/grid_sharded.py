@@ -40,18 +40,26 @@ from ..ops.davidson import davidson_ground_state, davidson_initial_guess_sharded
 from ..ops.hamiltonian import SCIHamiltonian, build_sci_hamiltonian
 from ..ops.precision import highest_precision
 from ..utils.device import checked_device
-from .mesh import MeshAxis, flat_axis, mesh_axis
+from .mesh import MeshAxis, flat_axis, group_ranks, mesh_axis
 
 __all__ = ["default_grid_mesh", "solve_sci_gridsharded"]
 
 _AXES = ("row", "col")
 
 
-def default_grid_mesh(device_type: str = "cuda") -> DeviceMesh:
-    """A near-square ``("row", "col")`` mesh over every rank of the process group."""
-    world = dist.get_world_size()
-    nr = next(k for k in range(math.isqrt(world), 0, -1) if world % k == 0)
-    return init_device_mesh(device_type, (nr, world // nr), mesh_dim_names=_AXES)
+def default_grid_mesh(devices=None, device_type: str = "cuda") -> DeviceMesh:
+    """A near-square ``("row", "col")`` mesh over the ranks ``devices`` of the
+    process group, every rank when ``None`` (as :func:`~.mesh.default_mesh`)."""
+    if devices is None:
+        world = dist.get_world_size()
+        return init_device_mesh(device_type, _near_square(world), mesh_dim_names=_AXES)
+    ranks = torch.tensor(group_ranks(devices))
+    return DeviceMesh(device_type, ranks.reshape(_near_square(len(ranks))), mesh_dim_names=_AXES)
+
+
+def _near_square(size: int) -> tuple[int, int]:
+    nr = next(k for k in range(math.isqrt(size), 0, -1) if size % k == 0)
+    return nr, size // nr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,9 +123,9 @@ def _gridsharded_matvec(op: _GridShard, x: torch.Tensor) -> torch.Tensor:
 
 def _grid_mesh(mesh, device: torch.device):
     if mesh is None:
-        return default_grid_mesh(device.type) if dist.is_initialized() else None
+        return default_grid_mesh(device_type=device.type) if dist.is_initialized() else None
     if tuple(mesh.mesh_dim_names or ()) != _AXES:
-        return default_grid_mesh(mesh.device_type)
+        return default_grid_mesh(mesh.mesh.reshape(-1).tolist(), mesh.device_type)
     return mesh
 
 
@@ -144,7 +152,8 @@ def solve_sci_gridsharded(
     Same contract as :func:`sqd_tpu_torch.fermion.solve_sci` (fused spin
     penalty, bare-Hamiltonian f64 energy, an f64 polish after an f32 solve),
     with ``sqd_tpu``'s defaults.  ``mesh``: a ``("row", "col")``
-    ``DeviceMesh`` (another mesh is replaced by :func:`default_grid_mesh`);
+    ``DeviceMesh`` (another mesh is replaced by :func:`default_grid_mesh`
+    over its ranks);
     by default :func:`default_grid_mesh`, or this process alone when there is
     no process group.  Every rank returns the same result.
     """

@@ -22,10 +22,27 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 __all__ = ["MeshAxis", "batch_sharding", "default_mesh", "flat_axis", "mesh_axis"]
 
 
-def default_mesh(axis_name: str = "batch", device_type: str = "cuda") -> DeviceMesh:
-    """A 1-D mesh named ``axis_name`` over every rank of the default process
-    group (which must be initialised: :func:`~.distributed.init_distributed`)."""
-    return init_device_mesh(device_type, (dist.get_world_size(),), mesh_dim_names=(axis_name,))
+def default_mesh(axis_name: str = "batch", devices=None, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-D mesh named ``axis_name`` over the ranks ``devices`` of the default
+    process group (which must be initialised:
+    :func:`~.distributed.init_distributed`), every rank when ``None``.  Every
+    rank of the group calls it; one outside ``devices`` holds no coordinate."""
+    if devices is None:
+        return init_device_mesh(device_type, (dist.get_world_size(),),
+                                mesh_dim_names=(axis_name,))
+    return DeviceMesh(device_type, group_ranks(devices), mesh_dim_names=(axis_name,))
+
+
+def group_ranks(devices) -> list[int]:
+    """``devices`` as a list of distinct ranks of the default process group
+    (``sqd_tpu``'s mesh takes a subset of devices; the port's a subset of
+    ranks); raises on a rank outside the group or a repeated one."""
+    world = dist.get_world_size()
+    ranks = [int(r) for r in devices]
+    if not ranks or len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"devices {ranks} must be distinct ranks of the process group "
+                         f"(world size {world})")
+    return ranks
 
 
 def _rank_range(size: int, rank: int, length: int) -> range:
@@ -121,7 +138,7 @@ def resolve_mesh(mesh: DeviceMesh | None, axis_name: str, device: torch.device):
     renames), :func:`default_mesh` when ``mesh`` is ``None`` and a process
     group exists, else ``None`` (one rank, no communication)."""
     if mesh is None:
-        return default_mesh(axis_name, device.type) if dist.is_initialized() else None
+        return default_mesh(axis_name, device_type=device.type) if dist.is_initialized() else None
     if mesh.ndim == 1:
         return mesh
     return DeviceMesh(mesh.device_type, mesh.mesh.reshape(-1), mesh_dim_names=(axis_name,))

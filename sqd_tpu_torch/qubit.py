@@ -12,10 +12,16 @@ the Davidson solvers on the card.  ``solve_qubit`` keeps the reference's
 contract: an explicit sparse matrix and ``scipy.sparse.linalg.eigsh`` with
 its keyword arguments passed through.
 
-Complex operators are solved in complex128 directly: none of ``sqd_tpu``'s
-TPU workarounds (the real embedding and its recovery for ``k > 1``, the
-segmented Davidson in place of the unsegmented one, the HBM budget for the
-f64 stage) is taken here.
+Both stages of the ``k == 1`` solve run the segmented Davidson, as
+``sqd_tpu``'s do: each 25-iteration segment restarts the Krylov space from
+the current Ritz vector, which changes the iterations each stage takes and,
+near the f32 precision floor, whether the coarse stage converges at all (an
+unsegmented f32 solve can stall at its cap there).  Left out are
+``sqd_tpu``'s TPU workarounds: the real embedding of complex operators and
+its recovery for ``k > 1`` (complex operators are solved in complex128
+directly), the HBM budget and Rayleigh-only branch of the f64 stage, and the
+f64 segments that shrink below 25 iterations once the embedded dimension
+passes 1.2e6, which only bound one program's time on the TPU.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from scipy.sparse.linalg import eigsh
 from . import native
 from .ops import bitpack
 from .ops.davidson import (
-    davidson_ground_state,
+    davidson_ground_state_segmented,
     davidson_initial_block,
     davidson_initial_guess,
     davidson_initial_guess_k,
@@ -206,7 +212,8 @@ def solve_qubit_device(
 
     Mixed precision as in ``sqd_tpu``: a ``coarse_dtype`` (f32) Davidson runs
     to ``max(tol, 32 eps scale)``, then an f64 Davidson polishes, started
-    from its vector, down to ``tol``.  With ``dtype`` given (or
+    from its vector, down to ``tol``; both run in 25-iteration segments
+    (:func:`~sqd_tpu_torch.ops.davidson.davidson_ground_state_segmented`).  With ``dtype`` given (or
     ``coarse_dtype=None``) a single stage runs in ``dtype``'s precision
     (f64 by default).  A complex operator runs in the complex dtype of each
     precision (complex64, complex128).
@@ -258,13 +265,13 @@ def solve_qubit_device(
     if coarse_dtype is not None and coarse_dtype != work:
         scale = float(hd.abs().max()) if hd.numel() else 1.0
         eps = torch.finfo(coarse_dtype).eps
-        coarse = davidson_ground_state(
+        coarse = davidson_ground_state_segmented(
             pauli_apply_flat, op, hd.to(coarse_dtype), v0.to(_vector_dtype(coarse_dtype, op)),
             tol=max(tol, 32 * eps * max(1.0, scale)),
             max_subspace=max_subspace, max_iterations=max_iterations,
         )
         v0 = coarse.vector.to(v0.dtype)
-    res = davidson_ground_state(
+    res = davidson_ground_state_segmented(
         pauli_apply_flat, op, hd.to(work), v0,
         tol=tol, max_subspace=max_subspace, max_iterations=max_iterations,
     )

@@ -37,11 +37,10 @@ CPU = "cpu"
 TOL_ENERGY = 1e-7  # Ha
 TOL_CHECKSUM = 1e-10  # relative
 # config 5 at 96 x 96: a Rayleigh quotient of a vector with residual norm r
-# lies within r^2 / gap of the lowest eigenvalue.  bench.py's solver stops at
-# r < 1e-4 (tol), the port's at its 200-iteration cap with r = 1.4e-4 (its
-# f32 floor at this problem); with the gap to the second level, 2.156 Ha (a
-# tight f64 solve), each f64 energy lies within 1e-8 Ha of the exact one, so
-# the two agree within 2e-8 Ha
+# lies within r^2 / gap of the lowest eigenvalue.  Both packages' segmented
+# solvers stop at r < 1e-4 (tol); with the gap to the second level, 2.156 Ha
+# (a tight f64 solve), each f64 energy lies within 1e-8 Ha of the exact one,
+# so the two agree within 2e-8 Ha
 TOL_CONFIG5 = 2e-8
 
 # bench.py:688-707, the keys of its printed ``detail``, less
@@ -192,20 +191,24 @@ def test_heisenberg_section_matches_sqd_tpu():
 
 def test_config5_section_matches_sqd_tpu():
     """The dense-DF f32 solve at 96 x 96 against ``bench.py``'s through
-    ``sqd_tpu``: the f64 energies within 2e-8 Ha."""
+    ``sqd_tpu``: both converged under the 200-iteration cap, the f64
+    energies within 2e-8 Ha."""
     strings = bench_torch.SIZES["config5_strings"][1]
     got = bench_torch.config5_section(CPU, strings)
-    h1, eri, packed = bench_torch.config5_problem(strings)
+    h1, eri, strs = bench_torch.config5_problem(strings)
+    packed = jax_bitpack.pack_ints(strs, 36)
     ham64 = jax_ham.build_sci_hamiltonian(packed, packed, h1, eri, 36, (27, 27),
                                           dtype=jnp.float64)
     hd32 = ham64.hdiag.astype(jnp.float32).reshape(-1)
     op = jax_dense_df.densify(ham64, dtype=jnp.float32)
     v0 = jax_davidson.davidson_initial_guess(hd32, jnp.float32)
-    # bench.py:651's solver (the port's bench runs the plain one)
+    # bench.py:651's solver, which the port's bench runs too
     res = jax_davidson.davidson_ground_state_segmented(
         jax_dense_df.dense_df_matvec_flat, op, hd32, v0, tol=1e-4, max_subspace=12,
         max_iterations=200)
     e64 = float(jax_ham.expectation_value(ham64, res.vector))
+    assert bool(res.converged) and int(res.iterations) < 200
+    assert got["residual_norm"] < 1e-4 and got["iterations"] < 200
     assert got["dim"] == strings * strings and got["eri_chol_rank"] == 108
     assert abs(got["energy_f64_eval"] - e64) < TOL_CONFIG5
     assert got["f64_eval_vs_theta_abs"] < bench_torch.TOL_CONFIG5

@@ -284,14 +284,14 @@ def test_batch_sharding_blocks(size):
 
 
 def test_mesh_helpers(group):
-    mesh = port_mesh.default_mesh("row", "cpu")
+    mesh = port_mesh.default_mesh("row", device_type="cpu")
     axis = port_mesh.mesh_axis(mesh, "row")
     assert (axis.size, axis.rank) == (1, 0)
     t = torch.arange(6.0).reshape(3, 2)
     assert torch.equal(axis.all_gather(t), t) and torch.equal(axis.reduce_scatter(t), t)
     assert torch.equal(axis.all_reduce(t), t) and axis.all_gather_object("x") == ["x"]
     assert port_mesh.batch_sharding(mesh)(7) == range(7)
-    grid = parallel.default_grid_mesh("cpu")
+    grid = parallel.default_grid_mesh(device_type="cpu")
     assert grid.mesh_dim_names == ("row", "col") and tuple(grid.mesh.shape) == (1, 1)
     assert port_mesh.flat_axis(grid).size == 1
     assert tuple(parallel.global_mesh("a", "b", device_type="cpu").mesh.shape) == (1, 1)

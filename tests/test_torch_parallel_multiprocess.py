@@ -76,7 +76,7 @@ for name, kw in spin.items():
     for sys_name, args in (("norb6", a6), ("norb8", a8)):
         out[f"row-{sys_name}-{name}"] = keep(parallel.solve_sci_rowsharded(*args, **f64, **kw))
 out["df"] = keep(parallel.solve_sci_dfsharded(*a8, eri_factor=s8["factor"], **f64))
-grid = parallel.default_grid_mesh("cpu")
+grid = parallel.default_grid_mesh(device_type="cpu")
 out["grid-mesh"] = list(grid.mesh.shape)
 loop, history = inp["loop"], []
 best = fermion.diagonalize_fermionic_hamiltonian(

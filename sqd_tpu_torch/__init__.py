@@ -24,8 +24,9 @@ ported slices, module for module under the same names:
 * :mod:`sqd_tpu_torch.models.hubbard` / :mod:`sqd_tpu_torch.models.fcidump`
   — Hubbard integrals; FCIDUMP files read and written.
 * :mod:`sqd_tpu_torch.utils.checkpoint` — the loop's checkpoint files;
-  :mod:`sqd_tpu_torch.utils.tracing` — ``IterationLogger`` and
-  ``profile_trace`` (``torch.profiler``, a Chrome trace).
+  :mod:`sqd_tpu_torch.utils.tracing` — ``IterationLogger``,
+  ``profile_trace`` (``torch.profiler``, a Chrome trace) and ``span``, the
+  program's ``sqd.*`` profiler ranges.
 * :mod:`sqd_tpu_torch.counts` / :mod:`sqd_tpu_torch.primitives` — sample
   ingestion (``BitArray``) and Pauli sums (``Pauli``, ``SparsePauliOp``).
 * :mod:`sqd_tpu_torch.ops.hamiltonian` — the projected operator and its

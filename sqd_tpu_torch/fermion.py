@@ -59,6 +59,7 @@ from .ops.table_cache import TableCache
 from .subsampling import postselect_by_hamming_right_and_left, subsample
 from .utils.checkpoint import LoopCheckpoint, load_loop_state, save_loop_state
 from .utils.device import checked_device
+from .utils.tracing import span
 
 __all__ = [
     "SCIResult",
@@ -316,70 +317,74 @@ def solve_sci(
     Returns:
         An :class:`SCIResult` with f64 energy, state, occupancies and RDMs.
     """
-    device = checked_device(device)
-    strs_a, strs_b = _check_ci_strs(ci_strings)
-    norb = int(one_body_tensor.shape[0])
-    pa = _strings_to_packed(strs_a, norb)
-    pb = _strings_to_packed(strs_b, norb)
-    m, n = len(strs_a), len(strs_b)
-    if solver_dtype is None:
-        solver_dtype = torch.float64 if m * n <= 200_000 else torch.float32
-    if refine_iterations is None:
-        refine_iterations = 0 if solver_dtype == torch.float64 else 6
-    pad_to = None
-    if pad_bucket:
-        pad_to = (_round_up(m, pad_bucket), _round_up(n, pad_bucket))
+    with span("solve"):
+        device = checked_device(device)
+        strs_a, strs_b = _check_ci_strs(ci_strings)
+        norb = int(one_body_tensor.shape[0])
+        pa = _strings_to_packed(strs_a, norb)
+        pb = _strings_to_packed(strs_b, norb)
+        m, n = len(strs_a), len(strs_b)
+        if solver_dtype is None:
+            solver_dtype = torch.float64 if m * n <= 200_000 else torch.float32
+        if refine_iterations is None:
+            refine_iterations = 0 if solver_dtype == torch.float64 else 6
+        pad_to = None
+        if pad_bucket:
+            pad_to = (_round_up(m, pad_bucket), _round_up(n, pad_bucket))
 
-    ham64 = build_sci_hamiltonian(
-        pa, pb, one_body_tensor, two_body_tensor, norb, nelec,
-        device=device,
-        spin_shift=0.0 if spin_sq is None else float(shift),
-        spin_target=0.0 if spin_sq is None else float(spin_sq),
-        dtype=torch.float64,
-        pad_to=pad_to,
-        table_cache=table_cache,
-        eri_factor=eri_factor,
-    )
-    ham = ham64.astype(solver_dtype)
-    hd_flat = ham.hdiag.reshape(-1)
-    v0 = davidson_initial_guess(hd_flat, solver_dtype)
-    tol_eff = _scaled_tol(hd_flat, tol)
-    if matvec_strategy == "dense_df":
-        if spin_sq is not None:
-            raise ValueError(
-                "matvec_strategy='dense_df' does not support the fused spin "
-                "penalty (non-PSD mixed term); use spin_sq=None"
-            )
-        if ham64.eri_chol is None:
-            raise ValueError(
-                "matvec_strategy='dense_df' requires a PSD ERI factor — "
-                "needs npair > 256 and symmetric PSD two_body_tensor "
-                "(see build_sci_hamiltonian(eri_factor=...))"
-            )
-        dense_op = densify(ham64, dtype=solver_dtype)
-        # in segments, as sqd_tpu's route: each segment restarts from the Ritz
-        # vector, which lets the f32 solve converge where the unsegmented one
-        # stalls at its cap (bench_torch.py's config 5)
-        result = davidson_ground_state_segmented(
-            dense_df_matvec_flat, dense_op, hd_flat, v0,
-            tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
+        ham64 = build_sci_hamiltonian(
+            pa, pb, one_body_tensor, two_body_tensor, norb, nelec,
+            device=device,
+            spin_shift=0.0 if spin_sq is None else float(shift),
+            spin_target=0.0 if spin_sq is None else float(spin_sq),
+            dtype=torch.float64,
+            pad_to=pad_to,
+            table_cache=table_cache,
+            eri_factor=eri_factor,
         )
-        del dense_op  # the W stacks: freed before the f64 tail
-    elif matvec_strategy == "gather":
-        result = davidson_ground_state(
-            sci_matvec_flat, ham, hd_flat, v0,
-            tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
-        )
-    else:
-        raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
-    vec_flat = result.vector.to(torch.float64)
-    if refine_iterations > 0 and solver_dtype != torch.float64:
-        result64 = davidson_ground_state(
-            sci_matvec_flat, ham64, ham64.hdiag.reshape(-1), vec_flat,
-            tol=tol, max_subspace=max_subspace, max_iterations=refine_iterations,
-        )
-        vec_flat = result64.vector
-    return _result_of(ham64, vec_flat, (strs_a, strs_b), (pa, pb), nelec, with_rdms)
+        ham = ham64.astype(solver_dtype)
+        hd_flat = ham.hdiag.reshape(-1)
+        v0 = davidson_initial_guess(hd_flat, solver_dtype)
+        tol_eff = _scaled_tol(hd_flat, tol)
+        if matvec_strategy == "dense_df":
+            if spin_sq is not None:
+                raise ValueError(
+                    "matvec_strategy='dense_df' does not support the fused spin "
+                    "penalty (non-PSD mixed term); use spin_sq=None"
+                )
+            if ham64.eri_chol is None:
+                raise ValueError(
+                    "matvec_strategy='dense_df' requires a PSD ERI factor — "
+                    "needs npair > 256 and symmetric PSD two_body_tensor "
+                    "(see build_sci_hamiltonian(eri_factor=...))"
+                )
+            dense_op = densify(ham64, dtype=solver_dtype)
+            # in segments, as sqd_tpu's route: each segment restarts from the Ritz
+            # vector, which lets the f32 solve converge where the unsegmented one
+            # stalls at its cap (bench_torch.py's config 5)
+            with span("davidson.solver"):
+                result = davidson_ground_state_segmented(
+                    dense_df_matvec_flat, dense_op, hd_flat, v0,
+                    tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
+                )
+            del dense_op  # the W stacks: freed before the f64 tail
+        elif matvec_strategy == "gather":
+            with span("davidson.solver"):
+                result = davidson_ground_state(
+                    sci_matvec_flat, ham, hd_flat, v0,
+                    tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
+                )
+        else:
+            raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
+        vec_flat = result.vector.to(torch.float64)
+        if refine_iterations > 0 and solver_dtype != torch.float64:
+            with span("davidson.refine"):
+                result64 = davidson_ground_state(
+                    sci_matvec_flat, ham64, ham64.hdiag.reshape(-1), vec_flat,
+                    tol=tol, max_subspace=max_subspace, max_iterations=refine_iterations,
+                )
+            vec_flat = result64.vector
+        return _result_of(ham64, vec_flat, (strs_a, strs_b), (pa, pb), nelec, with_rdms)
 
 
 def _scaled_tol(hd_flat: torch.Tensor, tol: float) -> float:
@@ -402,20 +407,21 @@ def _result_of(ham64, vec_flat, strs, packed, nelec, with_rdms=True, energy=None
         ham64, vec_pad, packed[0] if with_rdms else None, packed[1] if with_rdms else None,
         with_dm2=with_rdms,
     )
-    dm1a, dm1b = rdms["dm1a"].cpu().numpy(), rdms["dm1b"].cpu().numpy()
-    dm2 = rdms["dm2"].cpu().numpy() if with_rdms else None
-    occupancies = (np.diagonal(dm1a).copy(), np.diagonal(dm1b).copy())
-    if energy is None:
-        energy = expectation_value(ham64, vec_pad.reshape(-1), spin_penalty=False)
-    m, n = len(strs[0]), len(strs[1])
-    sci_state = SCIState(
-        amplitudes=vec_pad[:m, :n].cpu().numpy(),
-        ci_strs_a=strs[0],
-        ci_strs_b=strs[1],
-        norb=ham64.norb,
-        nelec=tuple(int(x) for x in nelec),
-        device=vec_pad.device,
-    )
+    with span("result"):
+        dm1a, dm1b = rdms["dm1a"].cpu().numpy(), rdms["dm1b"].cpu().numpy()
+        dm2 = rdms["dm2"].cpu().numpy() if with_rdms else None
+        occupancies = (np.diagonal(dm1a).copy(), np.diagonal(dm1b).copy())
+        if energy is None:
+            energy = expectation_value(ham64, vec_pad.reshape(-1), spin_penalty=False)
+        m, n = len(strs[0]), len(strs[1])
+        sci_state = SCIState(
+            amplitudes=vec_pad[:m, :n].cpu().numpy(),
+            ci_strs_a=strs[0],
+            ci_strs_b=strs[1],
+            norb=ham64.norb,
+            nelec=tuple(int(x) for x in nelec),
+            device=vec_pad.device,
+        )
     return SCIResult(
         energy, sci_state, orbital_occupancies=occupancies, rdm1=dm1a + dm1b, rdm2=dm2
     )
@@ -746,117 +752,123 @@ def diagonalize_fermionic_hamiltonian(
     raw_bitstrings, raw_probs = bit_array_to_arrays(bit_array)
 
     for iteration in range(start_iteration, max_iterations):
-        if current_occupancies is None:
-            bitstrings, probs = postselect_by_hamming_right_and_left(
-                raw_bitstrings, raw_probs, hamming_right=n_alpha, hamming_left=n_beta
-            )
-            if not bitstrings.size:
-                raise ValueError(
-                    "The input bit array did not contain any valid bitstrings. "
-                    "Either pass a bit array that contains at least one valid bitstring "
-                    "(with the correct right and left Hamming weights), or specify a "
-                    "value for initial_occupancies."
-                )
-        else:
-            bitstrings, probs = recover_configurations(
-                raw_bitstrings, raw_probs, current_occupancies, n_alpha, n_beta,
-                rand_seed=rng, device=device,
-            )
-
-        subsamples = subsample(
-            bitstrings, probs, samples_per_batch=samples_per_batch,
-            num_batches=num_batches, rand_seed=rng,
-        )
-
-        ci_strings = []
-        for samples in subsamples:
-            samples_a, counts_a = np.unique(
-                bitstring_matrix_to_integers(samples[:, norb:]), return_counts=True
-            )
-            samples_b, counts_b = np.unique(
-                bitstring_matrix_to_integers(samples[:, :norb]), return_counts=True
-            )
-            if symmetrize_spin:
-                merged = np.concatenate((samples_a, samples_b))
-                counts = np.concatenate((counts_a, counts_b))
-                merged = merged[np.argsort(counts)[::-1]]
-                strs = np.concatenate((include_a, include_b, carryover_strings_a, merged))
-                strs_a = strs_b = _unique_with_order_preserved(strs)[:max_dim_a]
+        with span("loop.iteration"):
+            if current_occupancies is None:
+                with span("samples.postselect"):
+                    bitstrings, probs = postselect_by_hamming_right_and_left(
+                        raw_bitstrings, raw_probs, hamming_right=n_alpha, hamming_left=n_beta
+                    )
+                if not bitstrings.size:
+                    raise ValueError(
+                        "The input bit array did not contain any valid bitstrings. "
+                        "Either pass a bit array that contains at least one valid bitstring "
+                        "(with the correct right and left Hamming weights), or specify a "
+                        "value for initial_occupancies."
+                    )
             else:
-                samples_a = samples_a[np.argsort(counts_a)[::-1]]
-                samples_b = samples_b[np.argsort(counts_b)[::-1]]
-                strs_a = np.concatenate((include_a, carryover_strings_a, samples_a))
-                strs_b = np.concatenate((include_b, carryover_strings_b, samples_b))
-                strs_a = _unique_with_order_preserved(strs_a)[:max_dim_a]
-                strs_b = _unique_with_order_preserved(strs_b)[:max_dim_b]
-            ci_strings.append((np.sort(strs_a), np.sort(strs_b)))
+                with span("samples.recover"):
+                    bitstrings, probs = recover_configurations(
+                        raw_bitstrings, raw_probs, current_occupancies, n_alpha, n_beta,
+                        rand_seed=rng, device=device,
+                    )
 
-        results = sci_solver(ci_strings, one_body_tensor, two_body_tensor, norb, nelec)
+            with span("samples.subsample"):
+                subsamples = subsample(
+                    bitstrings, probs, samples_per_batch=samples_per_batch,
+                    num_batches=num_batches, rand_seed=rng,
+                )
 
-        if callback is not None:
-            callback(results)
+            with span("loop.strings"):
+                ci_strings = []
+                for samples in subsamples:
+                    samples_a, counts_a = np.unique(
+                        bitstring_matrix_to_integers(samples[:, norb:]), return_counts=True
+                    )
+                    samples_b, counts_b = np.unique(
+                        bitstring_matrix_to_integers(samples[:, :norb]), return_counts=True
+                    )
+                    if symmetrize_spin:
+                        merged = np.concatenate((samples_a, samples_b))
+                        counts = np.concatenate((counts_a, counts_b))
+                        merged = merged[np.argsort(counts)[::-1]]
+                        strs = np.concatenate((include_a, include_b, carryover_strings_a, merged))
+                        strs_a = strs_b = _unique_with_order_preserved(strs)[:max_dim_a]
+                    else:
+                        samples_a = samples_a[np.argsort(counts_a)[::-1]]
+                        samples_b = samples_b[np.argsort(counts_b)[::-1]]
+                        strs_a = np.concatenate((include_a, carryover_strings_a, samples_a))
+                        strs_b = np.concatenate((include_b, carryover_strings_b, samples_b))
+                        strs_a = _unique_with_order_preserved(strs_a)[:max_dim_a]
+                        strs_b = _unique_with_order_preserved(strs_b)[:max_dim_b]
+                    ci_strings.append((np.sort(strs_a), np.sort(strs_b)))
 
-        best_result_in_batch = min(results, key=lambda result: result.energy)
-        if best_result is None or best_result_in_batch.energy < best_result.energy:
-            best_result = best_result_in_batch
+            results = sci_solver(ci_strings, one_body_tensor, two_body_tensor, norb, nelec)
 
-        if (
-            current_energy is not None
-            and abs(current_energy - best_result_in_batch.energy) < energy_tol
-            and np.linalg.norm(
-                np.ravel(current_occupancies)
-                - np.ravel(best_result_in_batch.orbital_occupancies),
-                ord=np.inf,
-            )
-            < occupancies_tol
-        ):
-            break
-        current_result = best_result_in_batch
-        current_energy = current_result.energy
-        current_occupancies = current_result.orbital_occupancies
+            if callback is not None:
+                with span("loop.callback"):
+                    callback(results)
 
-        # carry over CI strings attached to large-amplitude configurations
-        sci_state = current_result.sci_state
-        absolute_vals = np.abs(sci_state.amplitudes.reshape(-1))
-        order = np.argsort(absolute_vals)
-        cut = np.searchsorted(absolute_vals, carryover_threshold, sorter=order)
-        kept = order[cut:]
-        _, n_strings_b = sci_state.amplitudes.shape
-        alpha_indices, beta_indices = np.divmod(kept, n_strings_b)
-        alpha_indices = np.unique(alpha_indices)
-        beta_indices = np.unique(beta_indices)
-        carryover_strings_a = sci_state.ci_strs_a[alpha_indices]
-        carryover_strings_b = sci_state.ci_strs_b[beta_indices]
-        weights_a = np.sum(np.abs(sci_state.amplitudes[alpha_indices]) ** 2, axis=1)
-        weights_b = np.sum(np.abs(sci_state.amplitudes[:, beta_indices]) ** 2, axis=0)
-        if symmetrize_spin:
-            merged = np.concatenate((carryover_strings_a, carryover_strings_b))
-            weights = np.concatenate((weights_a, weights_b))
-            merged = merged[np.argsort(weights)[::-1]]
-            carryover_strings_a = carryover_strings_b = _unique_with_order_preserved(merged)
-        else:
-            carryover_strings_a = carryover_strings_a[np.argsort(weights_a)[::-1]]
-            carryover_strings_b = carryover_strings_b[np.argsort(weights_b)[::-1]]
+            best_result_in_batch = min(results, key=lambda result: result.energy)
+            if best_result is None or best_result_in_batch.energy < best_result.energy:
+                best_result = best_result_in_batch
 
-        if checkpoint_path is not None:
-            best_state = best_result.sci_state
-            pa, pb = best_state._packed()
-            save_loop_state(
-                checkpoint_path,
-                LoopCheckpoint(
-                    iteration=iteration,
-                    rng_state=rng.bit_generator.state,
-                    current_occupancies=current_occupancies,
-                    carryover_strings_a=carryover_strings_a,
-                    carryover_strings_b=carryover_strings_b,
-                    best_energy=best_result.energy,
-                    best_state_blob={"amplitudes": np.asarray(best_state.amplitudes),
-                                     "strs_a_packed": pa, "strs_b_packed": pb},
-                    best_occupancies=best_result.orbital_occupancies,
-                    current_energy=current_energy,
-                    norb=norb,
-                ),
-            )
+            if (
+                current_energy is not None
+                and abs(current_energy - best_result_in_batch.energy) < energy_tol
+                and np.linalg.norm(
+                    np.ravel(current_occupancies)
+                    - np.ravel(best_result_in_batch.orbital_occupancies),
+                    ord=np.inf,
+                )
+                < occupancies_tol
+            ):
+                break
+            current_result = best_result_in_batch
+            current_energy = current_result.energy
+            current_occupancies = current_result.orbital_occupancies
+
+            # carry over CI strings attached to large-amplitude configurations
+            sci_state = current_result.sci_state
+            absolute_vals = np.abs(sci_state.amplitudes.reshape(-1))
+            order = np.argsort(absolute_vals)
+            cut = np.searchsorted(absolute_vals, carryover_threshold, sorter=order)
+            kept = order[cut:]
+            _, n_strings_b = sci_state.amplitudes.shape
+            alpha_indices, beta_indices = np.divmod(kept, n_strings_b)
+            alpha_indices = np.unique(alpha_indices)
+            beta_indices = np.unique(beta_indices)
+            carryover_strings_a = sci_state.ci_strs_a[alpha_indices]
+            carryover_strings_b = sci_state.ci_strs_b[beta_indices]
+            weights_a = np.sum(np.abs(sci_state.amplitudes[alpha_indices]) ** 2, axis=1)
+            weights_b = np.sum(np.abs(sci_state.amplitudes[:, beta_indices]) ** 2, axis=0)
+            if symmetrize_spin:
+                merged = np.concatenate((carryover_strings_a, carryover_strings_b))
+                weights = np.concatenate((weights_a, weights_b))
+                merged = merged[np.argsort(weights)[::-1]]
+                carryover_strings_a = carryover_strings_b = _unique_with_order_preserved(merged)
+            else:
+                carryover_strings_a = carryover_strings_a[np.argsort(weights_a)[::-1]]
+                carryover_strings_b = carryover_strings_b[np.argsort(weights_b)[::-1]]
+
+            if checkpoint_path is not None:
+                best_state = best_result.sci_state
+                pa, pb = best_state._packed()
+                save_loop_state(
+                    checkpoint_path,
+                    LoopCheckpoint(
+                        iteration=iteration,
+                        rng_state=rng.bit_generator.state,
+                        current_occupancies=current_occupancies,
+                        carryover_strings_a=carryover_strings_a,
+                        carryover_strings_b=carryover_strings_b,
+                        best_energy=best_result.energy,
+                        best_state_blob={"amplitudes": np.asarray(best_state.amplitudes),
+                                         "strs_a_packed": pa, "strs_b_packed": pb},
+                        best_occupancies=best_result.orbital_occupancies,
+                        current_energy=current_energy,
+                        norb=norb,
+                    ),
+                )
 
     return cast(SCIResult, best_result)
 

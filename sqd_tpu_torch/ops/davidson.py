@@ -227,6 +227,12 @@ def davidson_ground_state(
         return _davidson(matvec, operator, hdiag, v0, tol, max_subspace, max_iterations, group)
 
 
+# Davidson iterations run by every lowest-pair solve (segments and stages
+# included), counted in _davidson; callers read the change across their work.
+davidson_ground_state.iterations = 0
+_iteration_counter = davidson_ground_state  # the owner, also where the name is rebound
+
+
 def davidson_ground_state_segmented(
     matvec: Callable,
     operator,
@@ -303,6 +309,7 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations, group) -> D
             t_new, nrm_raw = _orthonormalize(r, v, m, eps, group)
             if float(nrm_raw) <= dep_eps * max(rnorm, eps):
                 it += 1
+                _iteration_counter.iterations += 1
                 done = True
                 break
         if m >= mss:
@@ -328,6 +335,7 @@ def _davidson(matvec, operator, hdiag, v0, tol, mss, max_iterations, group) -> D
         u, hu = y @ v, y @ w
         rnorm = float(_norm(hu - theta * u, group))
         it += 1
+        _iteration_counter.iterations += 1
         done = rnorm < tol
     return DavidsonResult(
         theta=float(theta),

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.tracing import span
 from .hamiltonian import SCIHamiltonian
 from .precision import highest_precision
 
@@ -113,7 +114,8 @@ class DenseDFOperator:
 def dense_df_matvec_flat(op: DenseDFOperator, x: torch.Tensor) -> torch.Tensor:
     """Flat-vector matvec adapter for the Davidson solver."""
     m, n = op.shape
-    return op.matvec(x.reshape(m, n)).reshape(-1)
+    with span("matvec.dense_df"):
+        return op.matvec(x.reshape(m, n)).reshape(-1)
 
 
 def _w_stack(src: torch.Tensor, sign: torch.Tensor, ell: torch.Tensor, dtype) -> torch.Tensor:

@@ -42,6 +42,7 @@ import torch
 
 from .. import native
 from ..utils.device import checked_device
+from ..utils.tracing import span
 from . import bitpack, cross_spin, linktab
 from .precision import highest_precision
 
@@ -273,15 +274,19 @@ class SCIHamiltonian(SCIBasis):
         """
         with highest_precision():
             if c.dtype == torch.float32:
-                return self._matvec_kernel(c)
+                with span("matvec.kernel"):
+                    return self._matvec_kernel(c)
             if self.col_block and c.shape[1] > self.col_block:
-                return self._matvec_blocked(c)
-            return self._matvec_full(c)
+                with span("matvec.blocked"):
+                    return self._matvec_blocked(c)
+            with span("matvec.full"):
+                return self._matvec_full(c)
 
     def _matvec_kernel(self, c: torch.Tensor) -> torch.Tensor:
         """Cross-spin channel via :func:`cross_spin.cross_spin_matvec` + same-spin."""
         sigma = cross_spin.cross_spin_matvec(c, self.cross_spin_operands())
-        sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
+        with span("matvec.samespin"):
+            sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
         if self.spin_shift != 0.0:
             sigma = sigma + self.spin_shift * (self._s2_const() - self.spin_target) * c
         return sigma
@@ -455,12 +460,13 @@ def expectation_value(
     scheme is not needed; this is its CPU branch.
     """
     m, n = ham.shape
-    ham_e = ham.astype(torch.float64)
-    if not spin_penalty and ham.spin_shift != 0.0:
-        ham_e = dataclasses.replace(ham_e, spin_shift=0.0)
-    c64 = c.to(torch.float64).reshape(m, n)
-    hv = ham_e.matvec(c64)
-    return float(torch.sum(c64 * hv) / torch.sum(c64 * c64))
+    with span("energy"):
+        ham_e = ham.astype(torch.float64)
+        if not spin_penalty and ham.spin_shift != 0.0:
+            ham_e = dataclasses.replace(ham_e, spin_shift=0.0)
+        c64 = c.to(torch.float64).reshape(m, n)
+        hv = ham_e.matvec(c64)
+        return float(torch.sum(c64 * hv) / torch.sum(c64 * c64))
 
 
 def _occupancy_np(packed: np.ndarray, norb: int) -> np.ndarray:
@@ -794,106 +800,117 @@ def build_sci_hamiltonian(
     words and at most 4096 same-spin candidates per string on both spins;
     the tables are the same either way.
     """
-    m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
-    n_a, n_b = (int(x) for x in nelec)
-    _check_weights(strs_a_packed, strs_b_packed, (n_a, n_b))
-    npair = norb * norb
-    m_pad, n_pad = pad_to if pad_to is not None else (m, n)
-    if m_pad < m or n_pad < n:
-        raise ValueError(f"pad_to {pad_to} smaller than subspace ({m}, {n})")
-    if col_block == "auto":
-        col_block = _auto_col_block(npair, m_pad, n_pad)
-        if npair * m_pad * n_pad > 32 * 1024 * 1024:
-            m_pad = -(-m_pad // 8) * 8
-            n_pad = -(-n_pad // 128) * 128
-    col_block = int(col_block)
-    if col_block:
-        n_pad = -(-n_pad // col_block) * col_block
-    pad_m, pad_n = m_pad - m, n_pad - n
+    with span("tables"):
+        m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
+        n_a, n_b = (int(x) for x in nelec)
+        _check_weights(strs_a_packed, strs_b_packed, (n_a, n_b))
+        npair = norb * norb
+        m_pad, n_pad = pad_to if pad_to is not None else (m, n)
+        if m_pad < m or n_pad < n:
+            raise ValueError(f"pad_to {pad_to} smaller than subspace ({m}, {n})")
+        if col_block == "auto":
+            col_block = _auto_col_block(npair, m_pad, n_pad)
+            if npair * m_pad * n_pad > 32 * 1024 * 1024:
+                m_pad = -(-m_pad // 8) * 8
+                n_pad = -(-n_pad // 128) * 128
+        col_block = int(col_block)
+        if col_block:
+            n_pad = -(-n_pad // col_block) * col_block
+        pad_m, pad_n = m_pad - m, n_pad - n
 
-    h1_np = np.asarray(h1e, np.float64)
-    eri_np = np.asarray(eri, np.float64)
-    eri_chol = None
-    if isinstance(eri_factor, np.ndarray):
-        eri_chol = np.ascontiguousarray(eri_factor, np.float64)
-        if eri_chol.ndim != 2 or eri_chol.shape[1] != npair:
-            raise ValueError(f"eri_factor must be (X, {npair}), got {eri_chol.shape}")
-    elif eri_factor == "auto" and npair > 256:
-        eri_chol = pivoted_cholesky_pairs(eri_np, norb, max_rank=npair // 3)
-    elif eri_factor not in (None, "auto"):
-        raise ValueError(f"unknown eri_factor {eri_factor!r}")
-    if tables_backend not in ("auto", "native", "device"):
-        raise ValueError(
-            f"unknown tables_backend {tables_backend!r} (expected 'auto', 'native' or 'device')"
+        h1_np = np.asarray(h1e, np.float64)
+        eri_np = np.asarray(eri, np.float64)
+        eri_chol = None
+        with span("tables.eri_factor"):
+            if isinstance(eri_factor, np.ndarray):
+                eri_chol = np.ascontiguousarray(eri_factor, np.float64)
+                if eri_chol.ndim != 2 or eri_chol.shape[1] != npair:
+                    raise ValueError(f"eri_factor must be (X, {npair}), got {eri_chol.shape}")
+            elif eri_factor == "auto" and npair > 256:
+                eri_chol = pivoted_cholesky_pairs(eri_np, norb, max_rank=npair // 3)
+            elif eri_factor not in (None, "auto"):
+                raise ValueError(f"unknown eri_factor {eri_factor!r}")
+        if tables_backend not in ("auto", "native", "device"):
+            raise ValueError(
+                f"unknown tables_backend {tables_backend!r} (expected 'auto', 'native' or 'device')"
+            )
+        if tables_backend in ("auto", "native"):
+            # the cache stores per-string rows at the full candidate width: at
+            # high filling that width explodes and the direct build is the
+            # cheaper one
+            cached = (
+                table_cache is not None
+                and table_cache.usable(np.asarray(strs_a_packed))
+                and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
+            )
+            tables = table_cache if cached else native
+            with span("tables.host"):
+                host = (*tables.gather_tables(strs_a_packed, norb),
+                        *tables.gather_tables(strs_b_packed, norb),
+                        *tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a),
+                        *tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b))
+        else:
+            host = None
+            h1_d = torch.as_tensor(h1_np, device=device).to(dtype)
+            eri_d = torch.as_tensor(eri_np, device=device).to(dtype)
+            src_a, sign_a = linktab.build_gather_tables(strs_a_packed, norb, device=device)
+            src_b, sign_b = linktab.build_gather_tables(strs_b_packed, norb, device=device)
+            ia, va = build_samespin_tables(strs_a_packed, h1_d, eri_d, norb, n_a, device=device)
+            ib, vb = build_samespin_tables(strs_b_packed, h1_d, eri_d, norb, n_b, device=device)
+
+        def val(x):
+            return torch.as_tensor(x, device=device).to(dtype)
+
+        with span("tables.upload"):
+            if host is not None:
+                src_a, sign_a, src_b, sign_b, ia, va, ib, vb = (
+                    torch.as_tensor(t, device=device) for t in host)
+                src_a, src_b, ia, ib = (t.to(torch.int64) for t in (src_a, src_b, ia, ib))
+                va, vb = va.to(dtype), vb.to(dtype)
+            # the tables are clamped (invalid -> index 0 with zero weight), so
+            # padding extends them with zero-weight entries
+            pad = torch.nn.functional.pad
+            src_a, sign_a = pad(src_a, (0, pad_m)), pad(sign_a, (0, pad_m))
+            src_b, sign_b = pad(src_b, (0, pad_n)), pad(sign_b, (0, pad_n))
+            ia, va = pad(ia, (0, 0, 0, pad_m)), pad(va, (0, 0, 0, pad_m))
+            ib, vb = pad(ib, (0, 0, 0, pad_n)), pad(vb, (0, 0, 0, pad_n))
+            eri_t = val(np.ascontiguousarray(eri_np.reshape(npair, npair).T))
+            if eri_chol is not None:
+                eri_chol = torch.as_tensor(eri_chol, device=device)
+        with span("tables.hdiag"):
+            occ_a = _occupancy_np(strs_a_packed, norb)
+            occ_b = _occupancy_np(strs_b_packed, norb)
+            if m_pad * n_pad >= DEVICE_DIAG_MIN_ELEMS:
+                # only the O((M + N) * norb) parts cross to the device
+                a_part, b_part, w = _hdiag_parts_np(occ_a, occ_b, h1_np, eri_np)
+                hd = _hdiag_device(
+                    torch.as_tensor(np.pad(a_part, (0, pad_m), constant_values=1e30),
+                                    device=device),
+                    torch.as_tensor(np.pad(b_part, (0, pad_n), constant_values=1e30),
+                                    device=device),
+                    torch.as_tensor(np.pad(occ_a, ((0, pad_m), (0, 0))), device=device),
+                    torch.as_tensor(np.pad(w, ((0, pad_n), (0, 0))), device=device),
+                    dtype=dtype,
+                )
+            else:
+                hd = val(np.pad(_hdiag_np(occ_a, occ_b, h1_np, eri_np),
+                                ((0, pad_m), (0, pad_n)), constant_values=1e30))
+
+        return SCIHamiltonian(
+            src_a=src_a,
+            sign_a=sign_a,
+            src_b=src_b,
+            sign_b=sign_b,
+            nbr_idx_a=ia,
+            nbr_val_a=va,
+            nbr_idx_b=ib,
+            nbr_val_b=vb,
+            eri_t=eri_t,
+            hdiag=hd,
+            eri_chol=eri_chol,
+            norb=int(norb),
+            nelec=(n_a, n_b),
+            spin_shift=float(spin_shift),
+            spin_target=float(spin_target),
+            col_block=col_block,
         )
-    if tables_backend in ("auto", "native"):
-        # the cache stores per-string rows at the full candidate width: at
-        # high filling that width explodes and the direct build is the
-        # cheaper one
-        cached = (
-            table_cache is not None
-            and table_cache.usable(np.asarray(strs_a_packed))
-            and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
-        )
-        tables = table_cache if cached else native
-        host = (*tables.gather_tables(strs_a_packed, norb),
-                *tables.gather_tables(strs_b_packed, norb),
-                *tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a),
-                *tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b))
-        src_a, sign_a, src_b, sign_b, ia, va, ib, vb = (
-            torch.as_tensor(t, device=device) for t in host)
-        src_a, src_b, ia, ib = (t.to(torch.int64) for t in (src_a, src_b, ia, ib))
-        va, vb = va.to(dtype), vb.to(dtype)
-    else:
-        h1_d = torch.as_tensor(h1_np, device=device).to(dtype)
-        eri_d = torch.as_tensor(eri_np, device=device).to(dtype)
-        src_a, sign_a = linktab.build_gather_tables(strs_a_packed, norb, device=device)
-        src_b, sign_b = linktab.build_gather_tables(strs_b_packed, norb, device=device)
-        ia, va = build_samespin_tables(strs_a_packed, h1_d, eri_d, norb, n_a, device=device)
-        ib, vb = build_samespin_tables(strs_b_packed, h1_d, eri_d, norb, n_b, device=device)
-    # the tables are clamped (invalid -> index 0 with zero weight), so
-    # padding extends them with zero-weight entries
-    pad = torch.nn.functional.pad
-    src_a, sign_a = pad(src_a, (0, pad_m)), pad(sign_a, (0, pad_m))
-    src_b, sign_b = pad(src_b, (0, pad_n)), pad(sign_b, (0, pad_n))
-    ia, va = pad(ia, (0, 0, 0, pad_m)), pad(va, (0, 0, 0, pad_m))
-    ib, vb = pad(ib, (0, 0, 0, pad_n)), pad(vb, (0, 0, 0, pad_n))
-    occ_a = _occupancy_np(strs_a_packed, norb)
-    occ_b = _occupancy_np(strs_b_packed, norb)
-    eri_t = np.ascontiguousarray(eri_np.reshape(npair, npair).T)
-
-    def val(x):
-        return torch.as_tensor(x, device=device).to(dtype)
-
-    if m_pad * n_pad >= DEVICE_DIAG_MIN_ELEMS:
-        # only the O((M + N) * norb) parts cross to the device
-        a_part, b_part, w = _hdiag_parts_np(occ_a, occ_b, h1_np, eri_np)
-        hd = _hdiag_device(
-            torch.as_tensor(np.pad(a_part, (0, pad_m), constant_values=1e30), device=device),
-            torch.as_tensor(np.pad(b_part, (0, pad_n), constant_values=1e30), device=device),
-            torch.as_tensor(np.pad(occ_a, ((0, pad_m), (0, 0))), device=device),
-            torch.as_tensor(np.pad(w, ((0, pad_n), (0, 0))), device=device),
-            dtype=dtype,
-        )
-    else:
-        hd = val(np.pad(_hdiag_np(occ_a, occ_b, h1_np, eri_np), ((0, pad_m), (0, pad_n)),
-                        constant_values=1e30))
-
-    return SCIHamiltonian(
-        src_a=src_a,
-        sign_a=sign_a,
-        src_b=src_b,
-        sign_b=sign_b,
-        nbr_idx_a=ia,
-        nbr_val_a=va,
-        nbr_idx_b=ib,
-        nbr_val_b=vb,
-        eri_t=val(eri_t),
-        hdiag=hd,
-        eri_chol=None if eri_chol is None else torch.as_tensor(eri_chol, device=device),
-        norb=int(norb),
-        nelec=(n_a, n_b),
-        spin_shift=float(spin_shift),
-        spin_target=float(spin_target),
-        col_block=col_block,
-    )

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from . import linktab
 from .hamiltonian import SCIBasis
 
@@ -115,10 +116,17 @@ def make_rdms(
     Returns a dict with keys ``dm1a``, ``dm1b`` and, if ``with_dm2``:
     ``dm2`` (spin-summed) or ``dm2aa/dm2ab/dm2bb`` (``spin_resolved=True``).
     """
+    with span("rdm"):
+        return _make_rdms(ham, c, strs_a_packed, strs_b_packed, spin_resolved, with_dm2,
+                          block_bytes)
+
+
+def _make_rdms(ham, c, strs_a_packed, strs_b_packed, spin_resolved, with_dm2, block_bytes):
     norb = ham.norb
     npair = norb * norb
     c = c / torch.linalg.norm(c)
-    dm1a, dm1b = _dm1s(ham, c)
+    with span("rdm.dm1"):
+        dm1a, dm1b = _dm1s(ham, c)
     out = {"dm1a": dm1a, "dm1b": dm1b}
     if not with_dm2:
         return out
@@ -136,29 +144,31 @@ def make_rdms(
         blk = max(block_bytes, 1) // per_row_bytes
         return int(max(8, min(total_rows, (blk // 8) * 8 or 8)))
 
-    row_block = pick_block(m, npair * n * itemsize)
-    if row_block == 0:
-        d_a = ham.gather_alpha(c).reshape(npair, -1)
-        d_b = ham.gather_beta(c).reshape(npair, -1)
-        pab = d_a @ d_b.T
-        del d_a, d_b
-    else:
-        m_pad = -(-m // row_block) * row_block
-        pad = (0, m_pad - m)
-        pab = _dm2ab_pair_gram_blocked(
-            torch.nn.functional.pad(ham.src_a, pad),
-            torch.nn.functional.pad(ham.sign_a, pad),
-            ham.src_b,
-            ham.sign_b,
-            torch.nn.functional.pad(c, (0, 0, 0, m_pad - m)),
-            row_block,
-        )
-    perm = torch.as_tensor(_qp_perm(norb), device=c.device)
-    dm2ab = pab[perm].reshape(norb, norb, norb, norb)
+    with span("rdm.ab"):
+        row_block = pick_block(m, npair * n * itemsize)
+        if row_block == 0:
+            d_a = ham.gather_alpha(c).reshape(npair, -1)
+            d_b = ham.gather_beta(c).reshape(npair, -1)
+            pab = d_a @ d_b.T
+            del d_a, d_b
+        else:
+            m_pad = -(-m // row_block) * row_block
+            pad = (0, m_pad - m)
+            pab = _dm2ab_pair_gram_blocked(
+                torch.nn.functional.pad(ham.src_a, pad),
+                torch.nn.functional.pad(ham.sign_a, pad),
+                ham.src_b,
+                ham.sign_b,
+                torch.nn.functional.pad(c, (0, 0, 0, m_pad - m)),
+                row_block,
+            )
+        perm = torch.as_tensor(_qp_perm(norb), device=c.device)
+        dm2ab = pab[perm].reshape(norb, norb, norb, norb)
 
     n_a, n_b = ham.nelec
-    _, src_ha, sign_ha = linktab.build_desdes_tables(strs_a_packed, norb, n_a, device=c.device)
-    _, src_hb, sign_hb = linktab.build_desdes_tables(strs_b_packed, norb, n_b, device=c.device)
+    with span("rdm.holes"):
+        _, src_ha, sign_ha = linktab.build_desdes_tables(strs_a_packed, norb, n_a, device=c.device)
+        _, src_hb, sign_hb = linktab.build_desdes_tables(strs_b_packed, norb, n_b, device=c.device)
 
     def samespin_gram(src, sign, c_rows):
         npair, k = src.shape
@@ -173,8 +183,9 @@ def make_rdms(
         c_p = torch.nn.functional.pad(c_rows, (0, x_pad - x))
         return _samespin_dm2_from_holes(src, sign, c_p, blk, k_block)
 
-    gram_a = samespin_gram(src_ha, sign_ha, c)
-    gram_b = samespin_gram(src_hb, sign_hb, c.T)
+    with span("rdm.samespin"):
+        gram_a = samespin_gram(src_ha, sign_ha, c)
+        gram_b = samespin_gram(src_hb, sign_hb, c.T)
     # gram[(p, r), (q, s)] -> dm2ss[p, q, r, s]
     dm2aa = gram_a.reshape(norb, norb, norb, norb).permute(0, 2, 1, 3)
     dm2bb = gram_b.reshape(norb, norb, norb, norb).permute(0, 2, 1, 3)

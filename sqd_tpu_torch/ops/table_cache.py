@@ -51,9 +51,11 @@ class _Store:
         """Rows for ``packed``, computing and appending missing ones via ``compute_new``."""
         rows = [r.tobytes() for r in packed]
         missing = [i for i, r in enumerate(rows) if r not in self._slots]
+        TableCache.rows_requested += len(rows)
         if missing:
             new_arrays = compute_new(packed[missing])
             self.native_rows += len(missing)
+            TableCache.rows_computed += len(missing)
             base = len(self._slots)
             for j, i in enumerate(missing):
                 self._slots[rows[i]] = base + j
@@ -70,7 +72,14 @@ class TableCache:
     One instance per (integrals, run): the same-spin matrix elements bake in
     ``h1e``/``eri``, so the cache fingerprints the integrals on first use and
     raises on a mismatch.  Not thread-safe; the loop uses it serially.
+
+    ``TableCache.rows_requested`` and ``TableCache.rows_computed`` count, over
+    every cache of the process, the per-string rows asked of the caches and
+    those the native kernels computed; the rest were reused.
     """
+
+    rows_requested = 0
+    rows_computed = 0
 
     def __init__(self):
         self._gather: dict[int, _Store] = {}  # norb -> store

@@ -9,9 +9,10 @@ Run from the repository root with no arguments::
 Phases, each printing one line; any failure exits non-zero:
 
 1. device — needs CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build — compiles the native host library (g++, ``csrc/sqdcore.cpp``) and
+2. build — compiles the native host library (g++, ``csrc/sqdcore.cpp``),
    the cross-spin CUDA kernel (nvcc, sm_90a, ``csrc/cross_spin_matvec.cu``)
-   from the sources in the checkout, both at once;
+   and the table kernels (nvcc, sm_90a, ``csrc/sci_tables.cu``) from the
+   sources in the checkout, all at once;
 3. kernel vs plain — the kernel against its plain PyTorch version on the
    headline operator (M = N = 1024, npair = 256), a ragged small operator, a
    spin-penalty operator, a wide one (N = 4480: several shared-memory k
@@ -27,6 +28,22 @@ Phases, each printing one line; any failure exits non-zero:
    route, and both column-blocked f64 matvecs against ``_matvec_full`` on
    the headline operator forced to ``col_block`` 128, bare and with the
    spin penalty, within ``1e-12 * max(|full|, 1)``;
+3b. table kernels vs the native build — ``card_tables.build_tables`` (the
+   gather and both same-spin kernels, what ``"auto"`` takes on the card
+   without a usable ``TableCache``) at the headline (16 orbitals, 1000 x
+   1000 strings), the cc-pVDZ cell's (10e,26o) and phase 8's (14e,28o)
+   shapes (1000 x 1000 strings), the CASCI (4368 strings a spin), config 5
+   (3163 two-word strings, 36 orbitals) and all C(17,5) = 6188 strings over
+   17 cc-pVDZ orbitals: its eight tables equal to ``native.gather_tables``'
+   and ``native.samespin_tables``' with ``torch.equal``, widths included;
+   ``card_tables.gather_tables`` equal to the native gather tables; per
+   shape the kernels' device time per build (``torch.profiler``), the
+   native build's seconds (the plain version) and the kernels' bound (their
+   least bytes, inputs read and tables written once, at the HBM rate).
+   From phase 5 on, ``build_tables.launches`` and ``gather_tables.launches``
+   are recorded by phase: one build in phase 5's solve, none in phase 6's
+   loop solves (their ``TableCache``), one in every batch solve of phase 8
+   (the cache declines 4558 candidates a string), some in phase 7's CASCI;
 4. Davidson — the f32 solver on the headline operator (``bench.py``'s
    settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
 5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
@@ -62,8 +79,8 @@ Phases, each printing one line; any failure exits non-zero:
    (``tools/make_ccpvdz_data.py``), a solve of the recorded sub-batch its
    energy within 1e-7 Ha; the best energy must lie within 1e-7 Ha of a
    host-f64 Rayleigh quotient (alpha-row blocks) and below RHF, its
-   occupancies sum to (7, 7); every batch solve must build the sparse
-   same-spin tables, a column-blocked operator with the factor attached,
+   occupancies sum to (7, 7); every batch solve must build its tables on
+   the card (one ``build_tables`` launch), a column-blocked operator with the factor attached,
    launch the kernel and run a blocked f64 matvec;
 9. qubit path — (a) ``bench.py``'s projection headline: ``pauli_term_table``
    for Z^n over d = 5e7 random unique 40- and 60-qubit strings (seeds 3 and
@@ -92,7 +109,7 @@ Phases, each printing one line; any failure exits non-zero:
    27 + 27 electrons, synthetic PSD integrals of rank 108, the same 3163
    two-word excitation strings for both spins, 10,004,569 determinants,
    padded 3168 x 3200, npair 1296).  (a) the operator: ``eri_factor="auto"``
-   must attach the factor and the sparse same-spin tables must be built;
+   must attach the factor and the card must build the tables;
    the kernel against its plain version at this shape, then timed beside
    its bound; the RDMs' two-hole tables of these strings
    (:func:`two_hole_tables`: int32 sources, as ``sqd_tpu``'s) built, their
@@ -211,7 +228,8 @@ Phases, each printing one line; any failure exits non-zero:
    path reaches a Pallas kernel in ``sqd_tpu``: the kernel's count must stay
    0.
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (the cross-spin kernel and
+the table kernels) and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
@@ -571,7 +589,7 @@ class Probe:
     step (each wrapper synchronises the card before and after), and per batch
     solve its subspace, kernel launches, blocked-matvec variants, the
     operators it built (``col_block``, an attached factor) and the sparse
-    same-spin table fills.  Restores everything on exit."""
+    same-spin table fills and card table builds.  Restores everything on exit."""
 
     def __init__(self):
         self.spans: list[dict] = [{}]
@@ -604,12 +622,13 @@ class Probe:
 
     def __enter__(self):
         from sqd_tpu_torch import fermion, native
-        from sqd_tpu_torch.ops import cross_spin
+        from sqd_tpu_torch.ops import card_tables, cross_spin
         from sqd_tpu_torch.ops.hamiltonian import SCIHamiltonian
 
         def counted_solve(fn):
             def wrapper(ci_strings, *args, **kwargs):
                 launches, builds = cross_spin.cross_spin_matvec.launches, len(self.builds)
+                card_builds = card_tables.build_tables.launches
                 variants, fills = len(self.variants), self.sparse_fills
                 davidson = len(self.davidson)
                 out = fn(ci_strings, *args, **kwargs)
@@ -620,6 +639,7 @@ class Probe:
                     "builds": self.builds[builds:],
                     "variants": sorted(set(self.variants[variants:])),
                     "sparse_fills": self.sparse_fills - fills,
+                    "card_builds": card_tables.build_tables.launches - card_builds,
                 })
                 return out
             return wrapper
@@ -822,6 +842,8 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
         "best occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8
         and abs(occ_b.sum() - 5) < 1e-8,
         "the table cache reused rows": probe.cache.native_rows_computed < strings_solved,
+        "no card table build (the table cache serves every solve)": all(
+            s["card_builds"] == 0 for s in probe.solves),
     })
     for what, ok in checks.items():
         if not ok:
@@ -936,15 +958,17 @@ def ccpvdz_phase(dev, smi, factor) -> int:
     print(f"ccpvdz loop: sub-batch {tuple(map(len, sub))} energy vs sqd_tpu |dE| "
           f"{sub_diff:.3e}; best |E - host f64| {abs(best.energy - e_host):.3e} (host quotient "
           f"in 32-row blocks, {t_host:.2f} s); RHF {recorded['rhf_energy']:.12f} Ha; per solve: "
-          f"operators {[b for s in probe.solves for b in s['builds']]}, sparse same-spin fills "
+          f"operators {[b for s in probe.solves for b in s['builds']]}, card table builds "
+          f"{[s['card_builds'] for s in probe.solves]}, sparse same-spin fills "
           f"{[s['sparse_fills'] for s in probe.solves]}, f64 blocked variants "
           f"{[s['variants'] for s in probe.solves]}, Davidson (stage, iterations) "
           f"{[s['davidson'] for s in probe.solves]}", flush=True)
     checks.update({
         "every batch above 877 strings per spin (sparse same-spin tables)": all(
             min(s["shape"]) > 877 for s in probe.solves),
-        "every batch solve filled sparse same-spin tables": all(
-            s["sparse_fills"] >= 2 for s in probe.solves),
+        # 4558 candidates a string: the cache declines them, the card builds
+        "every batch solve built its tables on the card": all(
+            s["card_builds"] == 1 and s["sparse_fills"] == 0 for s in probe.solves),
         "every batch operator has col_block > 0 and an attached eri_chol": all(
             len(s["builds"]) == 1 and s["builds"][0]["col_block"] > 0
             and s["builds"][0]["eri_chol"] for s in probe.solves),
@@ -1275,7 +1299,7 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
     import torch
 
     from sqd_tpu_torch import fermion
-    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import bitpack, card_tables, cross_spin
     from sqd_tpu_torch.ops import hamiltonian as ham_ops
     from sqd_tpu_torch.ops.dense_df import densify
 
@@ -1285,6 +1309,7 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
     pad = -(-len(strs) // 32) * 32  # solve_sci's pad_bucket
 
     # -- (a) the operator, and the kernel at npair 1296 -----------------------
+    card_builds = card_tables.build_tables.launches
     with Probe() as probe:
         sync()
         t0 = time.perf_counter()
@@ -1292,19 +1317,21 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
                                               pad_to=(pad, pad))
         sync()
         t_build = time.perf_counter() - t0
+    card_builds = card_tables.build_tables.launches - card_builds
     ham32 = ham64.astype(torch.float32)
     m, n = ham64.shape
     rank = None if ham64.eri_chol is None else ham64.eri_chol.shape[0]
     print(f"config 5: {len(strs)} x {len(strs)} = {len(strs) ** 2} determinants of {norb} "
           f"orbitals, {packed.shape[1]}-word strings, operator {(m, n)}, npair {norb * norb}, "
           f"col_block {ham64.col_block}, eri_factor 'auto' rank {rank}, same-spin lists "
-          f"{tuple(ham64.nbr_idx_a.shape)} ({probe.sparse_fills} sparse fills); build "
+          f"{tuple(ham64.nbr_idx_a.shape)} ({card_builds} card build, {probe.sparse_fills} "
+          f"sparse fills); build "
           f"{t_build:.3f} s ({smi})", flush=True)
     checks = {
         "two-word strings": packed.shape[1] == 2,
         "'auto' attached a factor of rank <= npair // 3": rank is not None
         and rank <= norb * norb // 3,
-        "the sparse same-spin tables were built": probe.sparse_fills >= 2,
+        "the card built the tables": card_builds == 1 and probe.sparse_fills == 0,
         "padded to (3168, 3200) with a column block": (m, n) == (3168, 3200)
         and ham64.col_block > 0,
     }
@@ -2402,6 +2429,99 @@ def example_kernel_phase(dev, smi, rng, energy13) -> tuple[int, dict]:
     return launches, timing
 
 
+def table_kernels_phase(dev, smi, shapes) -> dict:
+    """Phase 3b: ``card_tables.build_tables`` against the native host build
+    at each of ``shapes`` (label -> ``(packed_a, packed_b, h1, eri, norb,
+    nelec)``).  Fails unless its eight tables, and ``gather_tables``' two of
+    each spin, equal the native ones with ``torch.equal``; returns, per
+    shape, the kernels' device time per build, the native build's time and
+    the kernels' bound."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from sqd_tpu_torch import native
+    from sqd_tpu_torch.ops import card_tables
+
+    def host(pa, pb, h1, eri, norb, nelec):
+        out = []
+        for p in (pa, pb):
+            src, sign = native.gather_tables(p, norb)
+            out += [torch.from_numpy(src).to(torch.int64), torch.from_numpy(sign)]
+        for p, ne in ((pa, nelec[0]), (pb, nelec[1])):
+            idx, val = native.samespin_tables(p, h1, eri, norb, ne)
+            out += [torch.from_numpy(idx).to(torch.int64), torch.from_numpy(val)]
+        return out
+
+    def same(got, want):
+        return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g.cpu(), w)
+                   for g, w in zip(got, want))
+
+    records = {}
+    for label, (pa, pb, h1, eri, norb, nelec) in shapes.items():
+        def card():
+            return card_tables.build_tables(pa, pb, h1, eri, norb, nelec, device=dev)
+
+        want = host(pa, pb, h1, eri, norb, nelec)
+        got = card()
+        gathers = [t for p in (pa, pb) for t in card_tables.gather_tables(p, norb, device=dev)]
+        equal, gather_equal = same(got, want), same(gathers, want[:4])
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host(pa, pb, h1, eri, norb, nelec)
+            host_s.append(time.perf_counter() - t0)
+        card_s = []
+        for _ in range(10):
+            sync()
+            t0 = time.perf_counter()
+            card()
+            sync()
+            card_s.append(time.perf_counter() - t0)
+        builds = 5
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(builds):
+                card()
+            sync()
+        kernel_ms = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and (
+                    "gather_kernel" in e.key or "samespin_kernel" in e.key):
+                name = "count" if "<false>" in e.key else "fill" if "<true>" in e.key else "gather"
+                kernel_ms[name] = e.self_device_time_total / 1e3 / builds
+        ms = sum(kernel_ms.values())
+        # the least bytes: the keys, the slot tables and the integrals read
+        # once, the eight tables written once
+        n = pa.shape[0] + pb.shape[0]
+        read = 8 * n + 8 * (norb**2 + norb**4) + sum(
+            4 * native.samespin_width(norb, ne) for ne in nelec)
+        written = sum(t.numel() * t.element_size() for t in got)
+        bound_ms = (read + written) / PEAK_HBM_BYTES * 1e3
+        widths = (int(got[4].shape[1]), int(got[6].shape[1]))
+        records[label] = {
+            "shape": [int(pa.shape[0]), int(pb.shape[0]), norb, int(pa.shape[1])],
+            "widths": list(widths), "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": float(np.median(host_s)) * 1e3, "card_s": float(np.median(card_s)),
+            "bound_ms": bound_ms, "bound_by": "bytes", "equal": equal and gather_equal,
+        }
+        print(f"table kernels [{label}] {pa.shape[0]} x {pb.shape[0]} strings of {norb} "
+              f"orbitals, {pa.shape[1]}-word, nelec {tuple(nelec)}, lists {widths} wide "
+              f"({smi}): tables equal to the native build {equal}, gather_tables equal "
+              f"{gather_equal}; kernels {ms:.4f} ms a build ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in kernel_ms.items())
+              + f"; torch.profiler, {builds} builds), the build {np.median(card_s) * 1e3:.3f} ms "
+              f"(synchronised host clock, median of 10), native {np.median(host_s) * 1e3:.2f} ms "
+              f"(median of 3); bound {bound_ms:.5f} ms by bytes "
+              f"({(read + written) / 1e6:.3f} MB at 3.35 TB/s), kernels at "
+              f"{bound_ms / ms if ms else 0.0:.2%} of it", flush=True)
+        if not (equal and gather_equal):
+            fail(f"table kernels [{label}]: the card's tables differ from the native build's")
+        if not kernel_ms:
+            fail(f"table kernels [{label}]: the profiler saw no table kernel")
+    return records
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2426,7 +2546,7 @@ def main() -> None:
         fail(f"the sqd_tpu_torch package is not beside this script ({exc})")
     from sqd_tpu_torch.fermion import solve_sci
     from sqd_tpu_torch.models.fcidump import read_fcidump
-    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import bitpack, card_tables, cross_spin
     from sqd_tpu_torch.ops.davidson import davidson_ground_state, davidson_initial_guess
     from sqd_tpu_torch.ops.hamiltonian import (
         build_sci_hamiltonian, pivoted_cholesky_pairs, sci_matvec_flat,
@@ -2434,12 +2554,14 @@ def main() -> None:
     from sqd_tpu_torch.ops.precision import highest_precision
 
     # -- 2. build ----------------------------------------------------------
-    with ThreadPoolExecutor(2) as pool:  # g++ and nvcc side by side
-        for job in [pool.submit(native.load), pool.submit(cross_spin._kernel_library)]:
+    with ThreadPoolExecutor(3) as pool:  # g++ and nvcc side by side
+        for job in [pool.submit(native.load), pool.submit(cross_spin._kernel_library),
+                    pool.submit(card_tables._library)]:
             job.result()
     print(
         f"build: g++ sqdcore {build.build_seconds['sqdcore']:.2f} s, "
-        f"nvcc cross_spin_matvec (sm_90a) {build.build_seconds['cross_spin_matvec']:.2f} s",
+        f"nvcc cross_spin_matvec (sm_90a) {build.build_seconds['cross_spin_matvec']:.2f} s, "
+        f"nvcc sci_tables (sm_90a) {build.build_seconds['sci_tables']:.2f} s",
         flush=True,
     )
 
@@ -2551,6 +2673,27 @@ def main() -> None:
     del blocked, full, c64
     torch.cuda.empty_cache()
 
+    # -- 3b. the table kernels against the native build ----------------------
+    h26, eri26 = h1_28[2:, 2:].copy(), eri_28[2:, 2:, 2:, 2:].copy()  # the frozen-core cell's
+    casci_packed = bitpack.pack_ints(all_strings(norb, nelec[0]), norb)
+    h5, eri5, strs5 = config5_problem()
+    p5 = bitpack.pack_ints(strs5, CONFIG5["norb"])
+    c17 = bitpack.pack_ints(all_strings(17, 5), 17)
+    tables = table_kernels_phase(dev, smi, {
+        "headline": (pa, pb, h1, eri, norb, nelec),
+        "ccpvdz_26o": (bitpack.pack_ints(excitation_strings(1000, 26, 5, 1), 26),
+                       bitpack.pack_ints(excitation_strings(1000, 26, 5, 2), 26),
+                       h26, eri26, 26, (5, 5)),
+        "ccpvdz_28o": (bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
+                       bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
+                       h1_28, eri_28, 28, (7, 7)),
+        "casci": (casci_packed, casci_packed, h1, eri, norb, nelec),
+        "config5": (p5, p5, h5, eri5, CONFIG5["norb"], CONFIG5["nelec"]),
+        "c17_all": (c17, c17, h1_28[2:19, 2:19].copy(), eri_28[2:19, 2:19, 2:19, 2:19].copy(),
+                    17, (5, 5)),
+    })
+    del casci_packed, h5, eri5, strs5, p5, c17
+
     # -- 4. Davidson on the headline operator --------------------------------
     hd32 = ham32.hdiag.reshape(-1)
     sync()
@@ -2566,6 +2709,14 @@ def main() -> None:
         fail("the f32 Davidson did not converge on the headline operator")
 
     # -- 5. the slice: solve_sci on the headline problem ---------------------
+    table_launches = {}  # phase -> [build_tables, gather_tables] launches in it
+
+    def took(phase):
+        table_launches[phase] = [card_tables.build_tables.launches,
+                                 card_tables.gather_tables.launches]
+        card_tables.build_tables.launches = card_tables.gather_tables.launches = 0
+
+    card_tables.build_tables.launches = card_tables.gather_tables.launches = 0
     cross_spin.cross_spin_matvec.launches = 0
     sync()
     t0 = time.perf_counter()
@@ -2573,6 +2724,7 @@ def main() -> None:
     sync()
     t_solve = time.perf_counter() - t0
     launches = cross_spin.cross_spin_matvec.launches
+    took("5")
     amps = result.sci_state.amplitudes
     vec = np.zeros(ham64.shape)
     vec[: amps.shape[0], : amps.shape[1]] = amps
@@ -2583,6 +2735,7 @@ def main() -> None:
           f"|E - sqd_tpu| {abs(result.energy - recorded['energy']):.3e}", flush=True)
     checks = {
         "kernel launched during the solve": launches > 0,
+        "the card built the solve's tables once": table_launches["5"][0] == 1,
         "amplitudes (1000, 1000) and finite": amps.shape == (1000, 1000)
         and bool(np.isfinite(amps).all()),
         "occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8 and abs(occ_b.sum() - 5) < 1e-8,
@@ -2596,11 +2749,15 @@ def main() -> None:
     del ham32, ham64
     # the headline operator by both table builds (phase 12 (b))
     compare_tables("headline", dev, smi, pa, pb, h1, eri, norb, nelec, pad_to=(1024, 1024))
+    took("5 tables by 'native' and 'device'")
 
     # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
     loop_launches, loop_best, loop_it0, t_loop = sqd_loop_phase(dev, smi, h1, eri, ecore)
+    took("6")
     casci_launches, casci, casci_err, e_casci = casci_phase(dev, smi, h1, eri, ecore, rng)
+    took("7")
     ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
+    took("8")
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
 
     # -- 9. the qubit path (no kernel of its own: torch ops and host C++) ----
@@ -2609,11 +2766,13 @@ def main() -> None:
     qubit_solve_phase(dev, smi)
     qubit_k_phase(dev, smi)
     print(f"qubit path: {time.perf_counter() - t0:.1f} s", flush=True)
+    took("9")
 
     # -- 10. BASELINE config 5 by the gather and the dense density-fitted route
     t0 = time.perf_counter()
     config5_launches, config5, config5_err, e_dense5, e_gather5 = dense_df_phase(dev, smi, rng)
     print(f"config 5: {time.perf_counter() - t0:.1f} s", flush=True)
+    took("10")
 
     # -- 11. the rest of the fermion API: orbital optimization, excited
     # states, excitation augmentation, a resumed loop and a traced solve
@@ -2627,6 +2786,7 @@ def main() -> None:
     resume_launches = resume_phase(dev, smi, h1, eri, ecore, loop_best, strs_a, strs_b,
                                    headline["ms"])
     t11.append(time.perf_counter())
+    took("11")
     parts = ", ".join(f"({part}) {b - a:.1f} s" for part, a, b in zip("abcd", t11, t11[1:]))
     print(f"fermion API: {t11[-1] - t11[0]:.1f} s: {parts}; the script so far "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
@@ -2638,6 +2798,7 @@ def main() -> None:
     t12.append(time.perf_counter())
     open_shell_phase(dev, smi)
     t12.append(time.perf_counter())
+    took("12")
     print(f"from geometry: {t12[-1] - t12[0]:.1f} s: (a) {t12[1] - t12[0]:.1f} s, (c) "
           f"{t12[2] - t12[1]:.1f} s; the script {time.perf_counter() - T_START:.1f} s", flush=True)
 
@@ -2649,6 +2810,7 @@ def main() -> None:
         e_dense5, rng)
     print(f"sharded solvers: {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
+    took("13")
 
     # -- 14. the sixteen guide examples at their guide sizes; example 13's
     # inputs in f32 through the kernel
@@ -2657,6 +2819,7 @@ def main() -> None:
     t14.append(time.perf_counter())
     example_launches, example13 = example_kernel_phase(dev, smi, rng, energy13)
     t14.append(time.perf_counter())
+    took("14")
     slowest = max(example_seconds, key=example_seconds.get)
     print(f"examples: {t14[2] - t14[0]:.1f} s: (a) {t14[1] - t14[0]:.1f} s (slowest {slowest} "
           f"{example_seconds[slowest]:.1f} s), (b) {t14[2] - t14[1]:.1f} s; the script "
@@ -2668,6 +2831,13 @@ def main() -> None:
     bench_qubit_phase(dev, smi, e_gather5)
     print(f"bench sections: {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s", flush=True)
+    took("15")
+    print(f"table kernels' launches by phase ([build_tables, gather_tables]): "
+          f"{table_launches}", flush=True)
+    # phase 6's solves build none (checked there): its one build is the
+    # operator of the best result's host quotient
+    if table_launches["7"][0] < 1:
+        fail("the card table builds by phase: none in phase 7's CASCI")
 
     print(json.dumps({"kernels": [{
         "name": "cross_spin_matvec",
@@ -2693,6 +2863,22 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes this contraction
         "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5,
                       "row_restricted": row_restricted, "example13": example13},
+    }, {
+        "name": "sci_tables",
+        "route": "cuda",
+        "source": "sqd_tpu_torch/csrc/sci_tables.cu",
+        "kernels": ["gather_kernel", "samespin_kernel<false>", "samespin_kernel<true>"],
+        "replaces": None,  # sqd_tpu builds these tables on the host or as XLA ops
+        "plain": "native.gather_tables and native.samespin_tables (host, one thread)",
+        "launches": table_launches["5"][0],
+        "launches_by_phase": table_launches,
+        "equal": all(r["equal"] for r in tables.values()),
+        "ms": tables["headline"]["ms"],
+        "plain_ms": tables["headline"]["plain_ms"],
+        "bound_ms": tables["headline"]["bound_ms"],
+        "bound_by": tables["headline"]["bound_by"],
+        "library_ms": None,  # no library call builds these tables
+        "at_shapes": tables,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

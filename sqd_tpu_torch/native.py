@@ -6,6 +6,13 @@ of ``sqd_tpu/native/sqdcore.cpp`` that are bound here, compiled with ``g++``
 into this package's build directory at first use (see
 :mod:`sqd_tpu_torch.build`).  Unlike ``sqd_tpu.native`` there is no NumPy
 fallback: a failed build raises.
+
+On a CUDA device ``build_sci_hamiltonian``'s ``tables_backend="auto"`` takes
+the CUDA port of :func:`gather_tables` and of :func:`samespin_tables`' ``"enum"``
+algorithm with :func:`compact_neighbours` (:mod:`sqd_tpu_torch.ops.card_tables`,
+``csrc/sci_tables.cu``), which gives these functions' tables bit for bit;
+these host builds serve the CPU, ``tables_backend="native"`` and the
+``TableCache``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ __all__ = [
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "sqdcore.cpp")
 COMMAND = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
+BUCKET = 8  # same-spin list widths are multiples of this (the card build's too)
 
 _u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
@@ -225,7 +233,7 @@ def samespin_values(strs_packed, h1e, eri, norb: int, nelec: int):
 
 
 def samespin_tables(
-    strs_packed, h1e, eri, norb: int, nelec: int, *, bucket: int = 8, algo: str = "auto"
+    strs_packed, h1e, eri, norb: int, nelec: int, *, bucket: int = BUCKET, algo: str = "auto"
 ):
     """Compacted Slater-Condon neighbour lists ``(idx (n, L) int32, val (n, L) f64)``.
 
@@ -263,7 +271,7 @@ def samespin_tables(
     return compact_neighbours(idx, val, bucket)
 
 
-def compact_neighbours(idx: np.ndarray, val: np.ndarray, bucket: int = 8):
+def compact_neighbours(idx: np.ndarray, val: np.ndarray, bucket: int = BUCKET):
     """Valid entries (``val != 0``) first in each row, the width cut to a multiple
     of ``bucket``, and everything past a row's valid prefix zeroed."""
     n, width_full = val.shape

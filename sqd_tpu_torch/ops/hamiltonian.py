@@ -17,9 +17,12 @@ Cartesian product, the projected Hamiltonian splits exactly into
   applied as row/column gathers.
 
 The tables come from the native host build (``tables_backend="native"``, and
-``"auto"``) or are built on the device from the packed strings as torch ops
-(``"device"``: :func:`sqd_tpu_torch.ops.linktab.build_gather_tables` and
-:func:`build_samespin_tables`).
+``"auto"`` on the CPU), from its CUDA port on the card (``"auto"`` on a CUDA
+device: :mod:`sqd_tpu_torch.ops.card_tables`, the same tables bit for bit),
+from a :class:`sqd_tpu_torch.ops.table_cache.TableCache` where one is given
+(the same tables again), or are built on the device from the packed strings
+as torch ops (``"device"``: :func:`sqd_tpu_torch.ops.linktab.build_gather_tables`
+and :func:`build_samespin_tables`).
 
 The optional spin penalty ``shift * (S^2 - target)`` is exact in the product
 basis too.  Padded determinants have zero couplings and a 1e30 diagonal, so
@@ -43,7 +46,7 @@ import torch
 from .. import native
 from ..utils.device import checked_device
 from ..utils.tracing import span
-from . import bitpack, cross_spin, linktab
+from . import bitpack, card_tables, cross_spin, linktab
 from .precision import highest_precision
 
 __all__ = [
@@ -723,6 +726,24 @@ def build_samespin_tables(strs_packed, h1e, eri, norb: int, nelec_spin: int, *,
     return idx, val
 
 
+def _tables_route(device, table_cache, strs_packed, norb: int, nelec) -> str:
+    """Where ``tables_backend="auto"`` builds an operator's tables: ``"cache"``
+    where a usable ``table_cache`` is given (packed width <= 2 words and at
+    most 4096 same-spin candidates a string on both spins, as ``sqd_tpu``
+    uses it), else ``"card"`` on a CUDA device whose kernels take the
+    strings (:func:`card_tables.takes`), else ``"native"``, the host build.
+    ``strs_packed`` is either spin's packed matrix (both have one width)."""
+    strs_packed = np.asarray(strs_packed)
+    # the cache stores per-string rows at the full candidate width: at high
+    # filling that width explodes and the direct build is the cheaper one
+    if (table_cache is not None and table_cache.usable(strs_packed)
+            and max(native.samespin_width(norb, int(ne)) for ne in nelec) <= 4096):
+        return "cache"
+    if torch.device(device).type == "cuda" and card_tables.takes(strs_packed):
+        return "card"
+    return "native"
+
+
 def build_sci_basis(
     strs_a_packed: np.ndarray,
     strs_b_packed: np.ndarray,
@@ -734,13 +755,19 @@ def build_sci_basis(
 ) -> SCIBasis:
     """Gather-table-only basis view (for RDM/S^2 queries), on ``device``.
 
-    ``tables_backend`` as in ``sqd_tpu``: ``"auto"`` and ``"native"`` build
-    the tables on the host (``"auto"`` falls back to the device only where
-    the library is missing, which in the port it never is: a failed build
-    raises), any other value on the device.
+    ``tables_backend`` as in ``sqd_tpu``: ``"native"`` builds the tables on
+    the host, ``"auto"`` too, except on a CUDA device where
+    :func:`card_tables.takes` the strings: there the card builds them
+    (:func:`card_tables.gather_tables`, the host's tables bit for bit); any
+    other value builds them on the device as torch ops.  (``sqd_tpu``'s
+    ``"auto"`` falls back to the device only where the library is missing,
+    which in the port it never is: a failed build raises.)
     """
     tables = []
     for strs in (strs_a_packed, strs_b_packed):
+        if tables_backend == "auto" and _tables_route(device, None, strs, norb, nelec) == "card":
+            tables += card_tables.gather_tables(strs, norb, device=device)
+            continue
         if tables_backend in ("auto", "native"):
             src, sign = native.gather_tables(np.asarray(strs), norb)
             src = torch.as_tensor(src, dtype=torch.int64, device=device)
@@ -780,12 +807,16 @@ def build_sci_hamiltonian(
     """Assemble the projected Hamiltonian on ``device``.
 
     The port of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``, with its
-    ``tables_backend``: ``"auto"`` and ``"native"`` build the tables on the
-    host (the native library), ``"device"`` builds them on ``device`` from
-    the packed strings (:func:`linktab.build_gather_tables`,
-    :func:`build_samespin_tables`; its same-spin values computed in
-    ``dtype``, and ``table_cache`` ignored); any other value raises
-    ``ValueError``.  Both backends share the rest: the same padding
+    ``tables_backend``: ``"native"`` builds the tables on the host (the
+    native library); ``"auto"`` where :func:`_tables_route` says: on the
+    host on the CPU, on the card on a CUDA device
+    (:func:`card_tables.build_tables`, the native build's tables bit for
+    bit, counted in ``card_tables.build_tables.launches``); ``"device"``
+    builds them on ``device`` from the packed strings as torch ops
+    (:func:`linktab.build_gather_tables`, :func:`build_samespin_tables`; its
+    same-spin values computed in ``dtype``, its lists keeping valid zero
+    values, and ``table_cache`` ignored); any other value raises
+    ``ValueError``.  All backends share the rest: the same padding
     (``pad_to``; clamped tables extended with zero weights, padded diagonal
     entries at 1e30), the same ``col_block`` (``"auto"``:
     :func:`_auto_col_block` and the alignment rule; an int: that block, 0 for
@@ -796,9 +827,9 @@ def build_sci_hamiltonian(
     computed on the host, or from ``DEVICE_DIAG_MIN_ELEMS`` padded
     determinants on, assembled on ``device`` from its rank-structured parts.
     A ``table_cache`` (:class:`sqd_tpu_torch.ops.table_cache.TableCache`)
-    supplies the tables where ``sqd_tpu`` would use it: packed width <= 2
-    words and at most 4096 same-spin candidates per string on both spins;
-    the tables are the same either way.
+    supplies the tables of ``"auto"`` and ``"native"`` where ``sqd_tpu``
+    would use it: packed width <= 2 words and at most 4096 same-spin
+    candidates per string on both spins; the tables are the same either way.
     """
     with span("tables"):
         m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
@@ -834,23 +865,21 @@ def build_sci_hamiltonian(
             raise ValueError(
                 f"unknown tables_backend {tables_backend!r} (expected 'auto', 'native' or 'device')"
             )
-        if tables_backend in ("auto", "native"):
-            # the cache stores per-string rows at the full candidate width: at
-            # high filling that width explodes and the direct build is the
-            # cheaper one
-            cached = (
-                table_cache is not None
-                and table_cache.usable(np.asarray(strs_a_packed))
-                and max(native.samespin_width(norb, n_a), native.samespin_width(norb, n_b)) <= 4096
-            )
-            tables = table_cache if cached else native
+        route = _tables_route(device, table_cache, strs_a_packed, norb, (n_a, n_b))
+        host = None
+        if tables_backend == "auto" and route == "card":
+            with span("tables.card"):
+                src_a, sign_a, src_b, sign_b, ia, va, ib, vb = card_tables.build_tables(
+                    strs_a_packed, strs_b_packed, h1_np, eri_np, norb, (n_a, n_b), device=device)
+                va, vb = va.to(dtype), vb.to(dtype)
+        elif tables_backend in ("auto", "native"):
+            tables = table_cache if route == "cache" else native
             with span("tables.host"):
                 host = (*tables.gather_tables(strs_a_packed, norb),
                         *tables.gather_tables(strs_b_packed, norb),
                         *tables.samespin_tables(strs_a_packed, h1_np, eri_np, norb, n_a),
                         *tables.samespin_tables(strs_b_packed, h1_np, eri_np, norb, n_b))
         else:
-            host = None
             h1_d = torch.as_tensor(h1_np, device=device).to(dtype)
             eri_d = torch.as_tensor(eri_np, device=device).to(dtype)
             src_a, sign_a = linktab.build_gather_tables(strs_a_packed, norb, device=device)

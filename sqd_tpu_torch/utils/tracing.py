@@ -11,8 +11,10 @@
   on the profiler's clock.
 
 The port opens spans where its work happens: ``sqd.solve`` around each
-``solve_sci``, and inside it ``sqd.tables`` (``.eri_factor``, ``.host``,
-``.upload``, ``.hdiag``), ``sqd.davidson.solver`` and ``sqd.davidson.refine``,
+``solve_sci``, and inside it ``sqd.tables`` (``.eri_factor``; ``.card`` where
+the card builds the tables, ``.host`` where the native library or a
+``TableCache`` does; ``.upload``, ``.hdiag``), ``sqd.davidson.solver`` and
+``sqd.davidson.refine``,
 ``sqd.matvec.<route>`` around each operator application (``kernel``, ``full``,
 ``blocked``, ``dense_df``; ``sqd.matvec.samespin`` inside ``kernel``),
 ``sqd.rdm`` (``.dm1``, ``.ab``, ``.holes``, ``.samespin``), ``sqd.energy`` and
@@ -27,13 +29,17 @@ what the host was doing.  Unlike ``torch.profiler.record_function``'s user
 ranges, they leave no copy on the card's timeline, where a copy would span
 the idle gaps between the kernels it encloses and read as device time.
 
-Three counters count the work, always on:
+Five counters count the work, always on:
 ``sqd_tpu_torch.ops.davidson.davidson_ground_state.iterations`` (Davidson
-iterations of every solve and stage), and
+iterations of every solve and stage),
 ``sqd_tpu_torch.ops.table_cache.TableCache.rows_requested`` and
 ``.rows_computed`` (per-string table rows asked of every cache, and those its
-native kernels had to compute; the rest were reused).  Read them before and
-after the work and take the difference.
+native kernels had to compute; the rest were reused), and
+``sqd_tpu_torch.ops.card_tables.build_tables.launches`` (operators whose
+tables the card built, one per ``build_sci_hamiltonian`` there) and
+``card_tables.gather_tables.launches`` (one spin's gather tables the card
+built, two per ``build_sci_basis`` there).  Read them before and after the
+work and take the difference.
 """
 
 from __future__ import annotations

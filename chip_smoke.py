@@ -579,7 +579,7 @@ def time_kernel(label, ham, rng, smi, rounds=10, calls=10, c_rows=None) -> dict:
 STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
          "table builds + upload", "solves (tables included)")
 SOLVE_STAGES = ("host tables", "densify", "f32 Davidson", "f64 refinement", "RDMs",
-                "two-hole tables (device, in RDMs)", "f64 energy")
+                "two-hole entries (in RDMs)", "f64 energy")
 BLOCKED_VARIANTS = ("_SCIHamiltonian__matvec_blocked",
                     "_SCIHamiltonian__matvec_blocked_beta_first_rowmajor")
 
@@ -695,15 +695,15 @@ class Probe:
     def solve_stages(self):
         """Time the stages of each solve (phases 7, 8 and 10): the host
         tables, the dense operator's build, each Davidson run by its dtype,
-        the RDMs with their two-hole tables, and the f64 energy."""
+        the RDMs with their two-hole entries, and the f64 energy."""
         from sqd_tpu_torch import fermion, native
-        from sqd_tpu_torch.ops import cross_spin, linktab
+        from sqd_tpu_torch.ops import cross_spin
         from sqd_tpu_torch.ops import rdm as rdm_ops
 
         self.timed(native, "gather_tables", "host tables")
         self.timed(native, "samespin_tables", "host tables")
         self.timed(rdm_ops, "make_rdms", "RDMs")
-        self.timed(linktab, "build_desdes_tables", "two-hole tables (device, in RDMs)")
+        self.timed(rdm_ops, "_two_hole_entries", "two-hole entries (in RDMs)")
         self.timed(fermion, "expectation_value", "f64 energy")
         self.timed(fermion, "densify", "densify")
 

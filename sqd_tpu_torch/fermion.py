@@ -290,6 +290,10 @@ def solve_sci(
         pad_bucket: if > 0, round each spin dimension up to this multiple.
         refine_iterations: f64 Davidson iterations warm-started from an f32
             solution; ``None`` resolves to 6 for f32 solves and 0 for f64.
+            A refinement that has not converged by then goes on from its
+            Ritz vector for up to ``max_cycle`` more iterations (``sqd_tpu``
+            stops): an f32 stage stopped at an excited state is refined down
+            to the ground state.
         with_rdms: attach the spin-summed 2-RDM (``rdm1`` and occupancies are
             always computed).
         matvec_strategy: ``"gather"`` (default) iterates with the gather-table
@@ -378,11 +382,20 @@ def solve_sci(
             raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
         vec_flat = result.vector.to(torch.float64)
         if refine_iterations > 0 and solver_dtype != torch.float64:
+            hd64 = ham64.hdiag.reshape(-1)
             with span("davidson.refine"):
                 result64 = davidson_ground_state(
-                    sci_matvec_flat, ham64, ham64.hdiag.reshape(-1), vec_flat,
+                    sci_matvec_flat, ham64, hd64, vec_flat,
                     tol=tol, max_subspace=max_subspace, max_iterations=refine_iterations,
                 )
+                if not result64.converged:
+                    # the f32 stage can stop at an excited state, within its f32
+                    # tolerance; the refinement then falls far below it and needs
+                    # more than refine_iterations to reach the ground state
+                    result64 = davidson_ground_state(
+                        sci_matvec_flat, ham64, hd64, result64.vector,
+                        tol=tol, max_subspace=max_subspace, max_iterations=max_cycle,
+                    )
             vec_flat = result64.vector
         return _result_of(ham64, vec_flat, (strs_a, strs_b), (pa, pb), nelec, with_rdms)
 

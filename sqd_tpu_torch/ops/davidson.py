@@ -224,12 +224,18 @@ def davidson_ground_state(
     """
     # f32 Gram-Schmidt and Rayleigh-Ritz need full-f32 products (no TF32)
     with highest_precision():
-        return _davidson(matvec, operator, hdiag, v0, tol, max_subspace, max_iterations, group)
+        res = _davidson(matvec, operator, hdiag, v0, tol, max_subspace, max_iterations, group)
+    if not res.converged:
+        _iteration_counter.unconverged += 1
+    return res
 
 
 # Davidson iterations run by every lowest-pair solve (segments and stages
-# included), counted in _davidson; callers read the change across their work.
+# included), counted in _davidson, and the lowest-pair solves that returned
+# unconverged at their iteration cap (a segmented solve once, not each
+# segment); callers read the change across their work.
 davidson_ground_state.iterations = 0
+davidson_ground_state.unconverged = 0
 _iteration_counter = davidson_ground_state  # the owner, also where the name is rebound
 
 
@@ -262,6 +268,7 @@ def davidson_ground_state_segmented(
     total = 0
     v = v0
     res = None
+    segments = 0
     while total < max_iterations:
         res = davidson_ground_state(
             matvec, operator, hdiag, v,
@@ -269,10 +276,14 @@ def davidson_ground_state_segmented(
             max_iterations=segment_iterations, group=group,
         )
         total += res.iterations
+        segments += 1
         # converged, stalled (precision floor), or the solver exited early
         if res.converged or res.iterations < segment_iterations:
             break
         v = res.vector
+    # each segment but the last stopped unconverged at its cap and was counted:
+    # the segmented solve counts once, as its last segment
+    _iteration_counter.unconverged -= segments - 1
     return res._replace(iterations=min(total, max_iterations))
 
 

@@ -9,9 +9,12 @@ The port of ``sqd_tpu.ops.rdm``:
   beta gathers, accumulated over alpha-row blocks when the product-space
   intermediate would exceed ``block_bytes``.
 * same-spin blocks ``<a+_p a+_r a_s a_q>``: the Gram of two-hole (des-des)
-  gathers, whose intermediate set is closed by construction, accumulated over
-  column blocks past ``block_bytes`` and over chunks of intermediates whose
-  int64 sources (the table is int32) stay within ``block_bytes``.
+  gathers, whose intermediate set is closed by construction.  It is summed
+  over the two-hole entries that share an intermediate, through the
+  transition matrix ``C C^T`` of the spin's strings, in chunks of
+  intermediates whose entry pairs stay within ``block_bytes``: the work grows
+  with the pairs of strings at most a double excitation apart, not with
+  ``npair**2`` times the intermediates (``sqd_tpu`` forms the dense Gram).
 
 ``E = sum h*dm1 + 1/2 sum (pq|rs) dm2[p,q,r,s]``.
 """
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.tracing import span
-from . import linktab
+from . import bitpack, linktab
 from .hamiltonian import SCIBasis
 
 __all__ = [
@@ -58,24 +61,74 @@ def _dm1s(ham: SCIBasis, c: torch.Tensor):
     return dm1a, dm1b
 
 
-def _samespin_dm2_from_holes(src, sign, c_rows, col_block: int, k_block: int):
-    """Gram of two-hole intermediates: ``c_rows`` is (n, X) for one spin axis.
+def _two_hole_entries(strs_packed, norb: int, dtype, device):
+    """The two-hole entries of one spin's strings, grouped by intermediate.
 
-    Returns (npair, npair) with entry [(p, r), (q, s)] = <a+p a+r a_s a_q>,
-    accumulated over chunks of ``k_block`` intermediates (the int32 ``src``
-    cast to int64 one chunk at a time) and, inside each, over column blocks of
-    ``col_block`` (X a ``col_block`` multiple, zero-padded), so neither a full
-    int64 copy of ``src`` nor the (npair, K, X) intermediate exists whole
-    unless it fits.
-    """
-    npair, k = src.shape
-    gram = torch.zeros((npair, npair), dtype=c_rows.dtype, device=c_rows.device)
-    for k0 in range(0, k, k_block):
-        idx = src[:, k0 : k0 + k_block].long()
-        sgn = sign[:, k0 : k0 + k_block].to(c_rows.dtype)[:, :, None]
-        for b0 in range(0, c_rows.shape[1], col_block):
-            f = (sgn * c_rows[:, b0 : b0 + col_block][idx]).reshape(npair, -1)
-            gram += f @ f.T
+    Every string ``I`` and ordered pair ``u != w`` of its occupied orbitals
+    gives the entry ``(K = I - u - w, pair u*norb + w, I, <K|a_w a_u|I>)``:
+    ``linktab.build_desdes_tables``'s valid table entries, enumerated from the
+    strings instead of looked up from the intermediates.  Returns ``(src,
+    pair, sign, group, counts)``: the entries sorted by intermediate (``group``
+    ascending), and each intermediate's number of entries."""
+    words = bitpack.to_device_words(strs_packed, device)  # (M, W)
+    occ = linktab.occupancy_matrix(words, norb)
+    held = occ.bool()
+    off_diag = ~torch.eye(norb, dtype=torch.bool, device=device)
+    rows, u, w = torch.nonzero(held[:, :, None] & held[:, None, :] & off_diag, as_tuple=True)
+    # the sign of <K|a_w a_u|I>: remove u (parity below u in I), then w
+    # (parity below w in I, less u where u < w)
+    below = torch.cumsum(occ, 1) - occ
+    parity = below[rows, u] + below[rows, w] - (u < w).to(below.dtype)
+    sign = (1 - 2 * (parity & 1)).to(dtype)
+    orbitals = torch.arange(norb, device=device)
+    bit = torch.zeros((norb, words.shape[1]), dtype=torch.int64, device=device)
+    bit[orbitals, orbitals // bitpack.WORD_BITS] = 1 << (orbitals % bitpack.WORD_BITS)
+    key = words[rows] - bit[u] - bit[w]  # the intermediate's words
+    _, group, counts = torch.unique(key, dim=0, return_inverse=True, return_counts=True)
+    group, order = torch.sort(group, stable=True)
+    return rows[order], (u * norb + w)[order], sign[order], group, counts
+
+
+def _samespin_gram(strs_packed, norb: int, nelec_spin: int, c_rows, block_bytes: int):
+    """``(npair, npair)`` Gram of one spin's two-hole gathers: entry
+    ``[(p, r), (q, s)] = <a+p a+r a_s a_q>`` for amplitudes ``c_rows`` (its
+    rows the spin's strings, zero-padded rows past them).
+
+    ``sum_K sum_x F[(p,r),K,x] F[(q,s),K,x]`` with ``F[(u,w),K,x] = sign
+    c[I,x]``: each pair of entries ``a, b`` that share an intermediate adds
+    ``sign_a sign_b T[I_a, I_b]`` at ``[pair_a, pair_b]``, ``T = C C^T``.  The
+    pairs are made and added in chunks of whole intermediates within
+    ``block_bytes`` (40 bytes a pair; one intermediate at least)."""
+    npair = norb * norb
+    gram = c_rows.new_zeros((npair, npair))
+    m = len(strs_packed)
+    if nelec_spin < 2 or m == 0:
+        return gram
+    with span("rdm.holes"):
+        src, pair, sign, group, counts = _two_hole_entries(strs_packed, norb, c_rows.dtype,
+                                                           c_rows.device)
+        starts = torch.cumsum(counts, 0) - counts
+        # entries and entry pairs before each intermediate, on the host
+        per_group = counts.cpu().numpy()
+        ends = np.concatenate([[0], np.cumsum(per_group)])
+        pairs = np.concatenate([[0], np.cumsum(per_group**2)])
+    with span("rdm.samespin"):
+        c_set = c_rows[:m]
+        t = c_set @ c_set.T
+        budget = max(block_bytes // 40, 1)
+        flat = gram.view(-1)
+        g0 = 0
+        while g0 < len(per_group):
+            g1 = max(g0 + 1, int(np.searchsorted(pairs, pairs[g0] + budget, side="right")) - 1)
+            e0, e1, n_pairs = int(ends[g0]), int(ends[g1]), int(pairs[g1] - pairs[g0])
+            rep = counts[group[e0:e1]]
+            a = torch.repeat_interleave(torch.arange(e0, e1, device=c_rows.device), rep,
+                                        output_size=n_pairs)
+            first = torch.cumsum(rep, 0) - rep  # each entry's first pair in the chunk
+            b = starts[group[a]] + torch.arange(n_pairs, device=c_rows.device) - first[a - e0]
+            vals = sign[a] * sign[b] * t[src[a], src[b]]
+            flat.index_put_((pair[a] * npair + pair[b],), vals, accumulate=True)
+            g0 = g1
     return gram
 
 
@@ -107,11 +160,11 @@ def make_rdms(
 ):
     """1-RDMs (and optionally 2-RDMs) of the state ``c`` (normalized here).
 
-    ``strs_*_packed`` (host arrays) are required for 2-RDMs.  When a per-pair
-    intermediate ((npair, M, N) for the opposite-spin Gram, (npair, K, N) for
-    the same-spin two-hole Grams) would exceed ``block_bytes``, its Gram
-    accumulates over blocks of at most ``block_bytes``; ``block_bytes=0``
-    forces blocking with the smallest tile.
+    ``strs_*_packed`` (host arrays) are required for 2-RDMs.  When the
+    opposite-spin Gram's (npair, M, N) intermediate would exceed
+    ``block_bytes``, it accumulates over blocks of at most ``block_bytes``;
+    the same-spin Grams add their entry pairs in chunks within it;
+    ``block_bytes=0`` forces both with the smallest tile.
 
     Returns a dict with keys ``dm1a``, ``dm1b`` and, if ``with_dm2``:
     ``dm2`` (spin-summed) or ``dm2aa/dm2ab/dm2bb`` (``spin_resolved=True``).
@@ -166,26 +219,8 @@ def _make_rdms(ham, c, strs_a_packed, strs_b_packed, spin_resolved, with_dm2, bl
         dm2ab = pab[perm].reshape(norb, norb, norb, norb)
 
     n_a, n_b = ham.nelec
-    with span("rdm.holes"):
-        _, src_ha, sign_ha = linktab.build_desdes_tables(strs_a_packed, norb, n_a, device=c.device)
-        _, src_hb, sign_hb = linktab.build_desdes_tables(strs_b_packed, norb, n_b, device=c.device)
-
-    def samespin_gram(src, sign, c_rows):
-        npair, k = src.shape
-        x = c_rows.shape[1]
-        # the int64 sources of one chunk stay within block_bytes too; the
-        # column block is sized for the chunk's intermediates, not all K
-        k_block = max(1, min(k, max(block_bytes, 1) // (npair * 8)))
-        blk = pick_block(x, npair * k_block * itemsize)
-        if blk == 0:
-            return _samespin_dm2_from_holes(src, sign, c_rows, max(x, 1), k_block)
-        x_pad = -(-x // blk) * blk
-        c_p = torch.nn.functional.pad(c_rows, (0, x_pad - x))
-        return _samespin_dm2_from_holes(src, sign, c_p, blk, k_block)
-
-    with span("rdm.samespin"):
-        gram_a = samespin_gram(src_ha, sign_ha, c)
-        gram_b = samespin_gram(src_hb, sign_hb, c.T)
+    gram_a = _samespin_gram(strs_a_packed, norb, n_a, c, block_bytes)
+    gram_b = _samespin_gram(strs_b_packed, norb, n_b, c.T, block_bytes)
     # gram[(p, r), (q, s)] -> dm2ss[p, q, r, s]
     dm2aa = gram_a.reshape(norb, norb, norb, norb).permute(0, 2, 1, 3)
     dm2bb = gram_b.reshape(norb, norb, norb, norb).permute(0, 2, 1, 3)

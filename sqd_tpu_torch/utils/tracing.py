@@ -29,9 +29,10 @@ what the host was doing.  Unlike ``torch.profiler.record_function``'s user
 ranges, they leave no copy on the card's timeline, where a copy would span
 the idle gaps between the kernels it encloses and read as device time.
 
-Five counters count the work, always on:
+Six counters count the work, always on:
 ``sqd_tpu_torch.ops.davidson.davidson_ground_state.iterations`` (Davidson
-iterations of every solve and stage),
+iterations of every solve and stage) and ``.unconverged`` (lowest-pair
+solves, plain or segmented, that returned unconverged at their cap),
 ``sqd_tpu_torch.ops.table_cache.TableCache.rows_requested`` and
 ``.rows_computed`` (per-string table rows asked of every cache, and those its
 native kernels had to compute; the rest were reused), and

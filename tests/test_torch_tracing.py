@@ -167,12 +167,12 @@ def _record_iterations(monkeypatch, owner):
 
 def test_iteration_counter_counts_both_stages(system, monkeypatch):
     """The counter advances by the f32 stage's iterations plus the f64
-    refinement's."""
+    refinement's: at this tolerance its 6 iterations and its continuation."""
     counter = davidson.davidson_ground_state
     calls = _record_iterations(monkeypatch, fermion)
     before = counter.iterations
     _solve(system, solver_dtype=torch.float32, tol=1e-8)
-    assert len(calls) == 2 and calls[0] > 0
+    assert len(calls) == 3 and calls[0] > 0 and calls[1] == 6
     assert counter.iterations - before == sum(calls)
 
 

@@ -25,9 +25,18 @@ Phases, each printing one line; any failure exits non-zero:
    bound there (the larger of its FLOPs at the f32 rate and its bytes at
    the HBM rate, counted from the operands), one f32 matvec's time, one
    f32 matvec at npair 784 by the kernel route and by the Cholesky-factored
-   route, and both column-blocked f64 matvecs against ``_matvec_full`` on
+   route, and both column-blocked f64 matvecs against ``_matvec_dense`` on
    the headline operator forced to ``col_block`` 128, bare and with the
    spin penalty, within ``1e-12 * max(|full|, 1)``;
+3c. the f64 kernel (:func:`f64_kernel_phase`), the exact operator's
+   cross-spin channel — at the headline, the cc-pVDZ batch (npair 784),
+   config 5 (3168 x 3200, npair 1296) and the CASCI (4384 x 4480): against
+   its plain version in f64 (small k and rs tiles forced at the first two),
+   and the f64 ``matvec``, which must launch it, against the dense route the
+   CPU takes (``_matvec_dense`` or ``_matvec_blocked``), within
+   ``1e-12 * max(|reference|, 1)``; its time beside its bound (its FLOPs at
+   the 34 TFLOP/s f64 rate or its bytes at the HBM rate) and the plain
+   version's, and one f64 matvec by each route;
 3b. table kernels vs the native build — ``card_tables.build_tables`` (the
    gather and both same-spin kernels, what ``"auto"`` takes on the card
    without a usable ``TableCache``) at the headline (16 orbitals, 1000 x
@@ -48,8 +57,10 @@ Phases, each printing one line; any failure exits non-zero:
    settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
 5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
    (N2/6-31G CAS(16o,(5,5)e), 1000 x 1000 excitation strings, integrals from
-   the committed FCIDUMP); the kernel must be launched during the solve, and
-   the energy must lie within 1e-7 Ha of a host-f64 Rayleigh quotient of the
+   the committed FCIDUMP); the kernel must be launched during the solve, the
+   f64 refinement and energy must take the f64 kernel and no column-blocked
+   matvec (its launches, counted from 0 here, are the kernels line's f64
+   ``launches``), and the energy must lie within 1e-7 Ha of a host-f64 Rayleigh quotient of the
    returned amplitudes and of the ``sqd_tpu`` energy recorded beside the
    FCIDUMP;
 6. SQD loop — ``sqd_tpu_torch.fermion.diagonalize_fermionic_hamiltonian`` on
@@ -59,14 +70,17 @@ Phases, each printing one line; any failure exits non-zero:
    strings and, within 1e-7 Ha, the energies that ``sqd_tpu`` recorded
    (``tools/make_sqd_loop_data.py``); the best energy must lie within
    1e-7 Ha of a host-f64 Rayleigh quotient of its amplitudes; every batch
-   solve must run in f32 (above 200k determinants) and launch the kernel;
+   solve must run in f32 (above 200k determinants) and launch the kernel,
+   and its f64 refinement the f64 kernel and no blocked f64 matvec;
    the table cache must have reused rows.  Prints each iteration's seconds
    in recovery, subsampling, table builds and solves;
 7. CASCI — ``solve_sci`` with its defaults on all C(16,5) = 4368 strings per
    spin of the same problem (19,079,424 determinants, padded to 4384 x 4480,
    ``col_block`` 128): first the kernel against its plain version, and
    timed, on that operator; then the solve must launch the kernel (f32
-   Davidson), run a column-blocked f64 matvec (refinement and energy), and
+   Davidson), take the f64 kernel in the refinement and the energy and no
+   column-blocked matvec (the card's f64 route has no dense intermediates to
+   bound), and
    give a total energy within 2e-6 Ha of the published -109.046671778080 Ha
    (``bench.py``'s gate).  Prints the seconds of each stage and the peak
    device memory;
@@ -81,7 +95,7 @@ Phases, each printing one line; any failure exits non-zero:
    host-f64 Rayleigh quotient (alpha-row blocks) and below RHF, its
    occupancies sum to (7, 7); every batch solve must build its tables on
    the card (one ``build_tables`` launch), a column-blocked operator with the factor attached,
-   launch the kernel and run a blocked f64 matvec;
+   launch the kernel and, for the refinement, the f64 kernel and no blocked f64 matvec;
 9. qubit path — (a) ``bench.py``'s projection headline: ``pauli_term_table``
    for Z^n over d = 5e7 random unique 40- and 60-qubit strings (seeds 3 and
    4, sorted and deduplicated on the card), best of 3, its signs summing to
@@ -115,7 +129,7 @@ Phases, each printing one line; any failure exits non-zero:
    (:func:`two_hole_tables`: int32 sources, as ``sqd_tpu``'s) built, their
    measured bytes and seconds printed, int32 indexing equal to int64; (b)
    ``DenseDFOperator.matvec`` (f32, ``wb`` aliasing ``wa``)
-   against the kernel-route f32 matvec and both against the f64 blocked
+   against the kernel-route f32 matvec and both against the exact f64
    matvec (the kernel route within ``1e-5 * max(|f64|, 1)``, the dense
    route, three f32 products in a row, within ``1e-4`` of it); one matvec of each route timed
    beside its bound (dense: ``4 X P^3`` FLOPs at the f32 rate, P the common
@@ -228,8 +242,8 @@ Phases, each printing one line; any failure exits non-zero:
    path reaches a Pallas kernel in ``sqd_tpu``: the kernel's count must stay
    0.
 
-The last two lines are the kernels' JSON record (the cross-spin kernel and
-the table kernels) and
+The last two lines are the kernels' JSON record (the cross-spin kernel, its
+f64 build and the table kernels) and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
@@ -253,6 +267,7 @@ except ImportError as exc:
     raise SystemExit(1) from None
 DATA_STEM = os.path.join(ROOT, "sqd_tpu_torch", "data", "n2_631g_cas16o_5a5b")
 TOL_KERNEL = 1e-5  # relative to max(|plain|, 1): f32 sums in another order
+TOL_F64 = 1e-12  # relative to max(|reference|, 1): f64 sums in another order
 TOL_ENERGY = 1e-7  # Ha
 # phase 6: the SQD loop, and the sqd_tpu record of its iteration 0
 LOOP_DATA = os.path.join(ROOT, "sqd_tpu_torch", "data", "sqd_loop_n2_631g.json")
@@ -329,6 +344,7 @@ TOL_DF_SHARDED = 1e-6  # Ha, the factor-sharded config 5 against phase 10's dens
 TOL_WORLDS = 1e-8  # Ha, (b)'s two ranks against (c)'s one
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
+PEAK_F64_FLOPS = 34e12  # f64 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # bytes per second
 # phase 15: bench_torch.py's qubit sections, held to the host quotient,
 TOL_BENCH_QUBIT = 1e-9  # relative
@@ -494,56 +510,75 @@ def event_ms(fn, calls=10) -> float:
     return start.elapsed_time(stop) / calls
 
 
-def check_kernel(name, ham, rng, tiles=None, c_rows=None) -> float:
-    """The kernel against its plain version on random amplitudes (``c_rows``
-    rows of them for an operator restricted to some output rows); returns
-    the largest difference and fails past ``TOL_KERNEL * max(|plain|, 1)``."""
+def _kernel_of(dtype):
+    """``(wrapper, operand itemsize, relative tolerance, peak FLOP/s)`` of the
+    cross-spin kernel computing in ``dtype``."""
     import torch
 
     from sqd_tpu_torch.ops import cross_spin
 
-    ops = ham.cross_spin_operands()
+    if dtype == torch.float64:
+        return cross_spin.cross_spin_matvec_f64, 8, TOL_F64, PEAK_F64_FLOPS
+    return cross_spin.cross_spin_matvec, 4, TOL_KERNEL, PEAK_F32_FLOPS
+
+
+def check_kernel(name, ham, rng, tiles=None, c_rows=None, dtype=None) -> float:
+    """The kernel of ``dtype`` (f32 by default, or f64) against its plain
+    version on random amplitudes (``c_rows`` rows of them for an operator
+    restricted to some output rows); returns the largest difference and
+    fails past ``TOL_KERNEL`` (f64: ``TOL_F64``) ``* max(|plain|, 1)``."""
+    import torch
+
+    from sqd_tpu_torch.ops import cross_spin
+
+    dtype = dtype or torch.float32
+    wrapper, itemsize, tol, _ = _kernel_of(dtype)
+    ops = ham.cross_spin_operands(dtype)
     m, n = ham.shape
     npair = ops.eri.shape[0]
     if tiles is None:
-        tiles = cross_spin.plan(n, npair, cross_spin.row_stride(ops.ka_pq.shape[1]))
-    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=torch.float32,
+        tiles = cross_spin.plan(n, npair, cross_spin.row_stride(ops.ka_pq.shape[1], itemsize),
+                                itemsize=itemsize)
+    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=dtype,
                         device=ham.src_a.device)
-    out = cross_spin.cross_spin_matvec(c, ops, tiles=tiles)
+    out = wrapper(c, ops, tiles=tiles)
     sync()
     ref = cross_spin.cross_spin_plain(c, ops)
     err = float((out - ref).abs().max())
-    bound = TOL_KERNEL * max(float(ref.abs().max()), 1.0)
+    bound = tol * max(float(ref.abs().max()), 1.0)
     finite = bool(torch.isfinite(out).all())
     empty = (int((ops.ka_n == 0).sum()), int((ops.kb_n == 0).sum()))
-    print(f"kernel vs plain [{name}] shape {(m, n)} of c {tuple(c.shape)} npair {npair} "
+    print(f"{'f64 ' if itemsize == 8 else ''}kernel vs plain [{name}] shape {(m, n)} of c "
+          f"{tuple(c.shape)} npair {npair} "
           f"ka {ops.ka_pq.shape[1]} "
           f"kb {ops.kb_rs.shape[1]}, empty rows/cols {empty}, tiles (cols, rs) {tiles}: "
           f"{-(-n // tiles[0])} k x {-(-npair // tiles[1])} rs: "
           f"max|diff| {err:.3e} (bound {bound:.3e})", flush=True)
     if not finite or err > bound:
-        fail(f"cross_spin_matvec disagrees with its plain version on {name}")
+        fail(f"{wrapper.__name__} disagrees with its plain version on {name}")
     return err
 
 
-def time_kernel(label, ham, rng, smi, rounds=10, calls=10, c_rows=None) -> dict:
-    """Median per-call times of the kernel and its plain version (in turns:
-    plain, kernel, kernel, plain) and the kernel's bound, at ``ham``'s shape
-    (with ``c_rows`` rows of amplitudes for an operator restricted to some
-    output rows)."""
+def time_kernel(label, ham, rng, smi, rounds=10, calls=10, c_rows=None, dtype=None) -> dict:
+    """Median per-call times of the kernel of ``dtype`` (f32 by default, or
+    f64) and its plain version (in turns: plain, kernel, kernel, plain) and
+    the kernel's bound, at ``ham``'s shape (with ``c_rows`` rows of
+    amplitudes for an operator restricted to some output rows)."""
     import numpy as np
     import torch
 
     from sqd_tpu_torch.ops import cross_spin
 
-    ops = ham.cross_spin_operands()
+    dtype = dtype or torch.float32
+    wrapper, itemsize, _, peak = _kernel_of(dtype)
+    ops = ham.cross_spin_operands(dtype)
     m, n = ham.shape
-    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=torch.float32,
+    c = torch.as_tensor(rng.normal(size=(c_rows or m, n)), dtype=dtype,
                         device=ham.src_a.device)
     npair = ops.eri.shape[0]
 
     def run_kernel():
-        cross_spin.cross_spin_matvec(c, ops)
+        wrapper(c, ops)
 
     def run_plain():
         cross_spin.cross_spin_plain(c, ops)
@@ -561,19 +596,102 @@ def time_kernel(label, ham, rng, smi, rounds=10, calls=10, c_rows=None) -> dict:
     flops = 2.0 * float(ops.ka_n.sum()) * float(ops.kb_n.sum())
     moved = [c, ops.ka_n, ops.ka_pq, ops.ka_src, ops.ka_sgn,
              ops.kb_n, ops.kb_rs, ops.kb_src, ops.kb_sgn, ops.eri]
-    nbytes = float(sum(t.numel() * t.element_size() for t in moved)) + 4.0 * m * n
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    nbytes = float(sum(t.numel() * t.element_size() for t in moved)) + itemsize * m * n
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     print(f"timing [{label}] at {(m, n)} (c {tuple(c.shape)}), npair {npair} ({smi}): "
-          f"kernel {t_kernel:.4f} ms, "
+          f"{'f64 ' if itemsize == 8 else ''}kernel {t_kernel:.4f} ms, "
           f"plain {t_plain:.4f} ms (per call: medians of {2 * rounds} rounds of {calls} calls, "
           f"CUDA events)", flush=True)
-    print(f"bound [{label}]: {flops / 1e9:.4f} GFLOP at 67 TFLOP/s = {t_ops:.5f} ms, "
+    print(f"bound [{label}]: {flops / 1e9:.4f} GFLOP at {peak / 1e12:.0f} TFLOP/s = "
+          f"{t_ops:.5f} ms, "
           f"{nbytes / 1e6:.3f} MB at 3.35 TB/s = {t_bytes:.5f} ms; bound {bound_ms:.5f} ms "
           f"by {bound_by}; kernel at {bound_ms / t_kernel:.2%} of it "
           f"({flops / t_kernel / 1e9:.3f} TFLOP/s)", flush=True)
     return {"shape": [m, n, npair], "ms": t_kernel, "plain_ms": t_plain,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def f64_kernel_phase(dev, smi, rng, headline) -> dict:
+    """Phase 3c: the f64 kernel, the exact operator's cross-spin channel, at
+    the headline (``headline``, f64), the cc-pVDZ batch (28 orbitals, npair
+    784), config 5 (3168 x 3200, npair 1296, two-word strings) and the CASCI
+    (4384 x 4480): against its plain version in f64 (with small k and rs
+    tiles forced at the first two), the f64 ``matvec`` (the kernel route)
+    against the dense route that the CPU takes, within ``TOL_F64``; the
+    kernel's time beside its bound and the plain version's, and one f64
+    matvec by each route.  Returns the timings by shape."""
+    import numpy as np
+    import torch
+
+    from sqd_tpu_torch.models.fcidump import read_fcidump
+    from sqd_tpu_torch.ops import bitpack, cross_spin
+    from sqd_tpu_torch.ops import hamiltonian as ham_ops
+
+    def operator(name):
+        if name == "headline":
+            return headline
+        if name == "ccpvdz":
+            dump = read_fcidump(CCPVDZ_STEM + ".fcidump")
+            return ham_ops.build_sci_hamiltonian(
+                bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
+                bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
+                dump["h1e"], dump["eri"], 28, (7, 7), device=dev, pad_to=(1024, 1024),
+                eri_factor=None)
+        if name == "config5":
+            h5, eri5, strs5 = config5_problem()
+            p5 = bitpack.pack_ints(strs5, CONFIG5["norb"])
+            pad = -(-len(strs5) // 32) * 32
+            return ham_ops.build_sci_hamiltonian(p5, p5, h5, eri5, CONFIG5["norb"],
+                                                 CONFIG5["nelec"], device=dev,
+                                                 pad_to=(pad, pad), eri_factor=None)
+        dump = read_fcidump(DATA_STEM + ".fcidump")
+        packed = bitpack.pack_ints(all_strings(16, 5), 16)
+        return ham_ops.build_sci_hamiltonian(packed, packed, dump["h1e"], dump["eri"], 16,
+                                             (5, 5), device=dev, pad_to=(4384, 4384))
+
+    forced = {"headline": (128, 96), "ccpvdz": (64, 40)}
+    rounds = {"headline": (10, 10), "ccpvdz": (5, 5), "config5": (1, 1), "casci": (2, 1)}
+    out = {}
+    for name in ("headline", "ccpvdz", "config5", "casci"):
+        ham = operator(name)
+        err = check_kernel(name, ham, rng, dtype=torch.float64)
+        if name in forced:
+            err = max(err, check_kernel(name + "_tiled", ham, rng, forced[name],
+                                        dtype=torch.float64))
+        timing = time_kernel(name + " f64", ham, rng, smi, *rounds[name], dtype=torch.float64)
+        c = torch.as_tensor(rng.normal(size=ham.shape), dtype=torch.float64, device=dev)
+        launches = cross_spin.cross_spin_matvec_f64.launches
+        route = ham.matvec(c)
+        if cross_spin.cross_spin_matvec_f64.launches != launches + 1:
+            fail(f"f64 matvec [{name}] did not take the f64 kernel route")
+        if ham.col_block and c.shape[1] > ham.col_block:
+            dense_name, dense = "_matvec_blocked", ham._matvec_blocked
+        else:
+            dense_name, dense = "_matvec_dense", ham._matvec_dense
+        ref = dense(c)
+        diff = float((route - ref).abs().max())
+        bound = TOL_F64 * max(float(ref.abs().max()), 1.0)
+        del route, ref
+        calls = rounds[name][1]
+        by_route, by_dense = [], []
+        for _ in range(max(1, rounds[name][0] // 2)):  # in turns
+            by_dense.append(event_ms(lambda: dense(c), calls))
+            by_route.append(event_ms(lambda: ham.matvec(c), calls))
+            by_route.append(event_ms(lambda: ham.matvec(c), calls))
+            by_dense.append(event_ms(lambda: dense(c), calls))
+        timing.update({"max_abs_err": err, "matvec_ms": float(np.median(by_route)),
+                       "dense_matvec_ms": float(np.median(by_dense)), "route_vs_dense": diff})
+        print(f"f64 matvec [{name}] at {tuple(c.shape)}, col_block {ham.col_block} ({smi}): "
+              f"kernel route {timing['matvec_ms']:.3f} ms, dense route ({dense_name}) "
+              f"{timing['dense_matvec_ms']:.3f} ms (medians, CUDA events); max|diff| "
+              f"{diff:.3e} (bound {bound:.3e})", flush=True)
+        if not diff <= bound:
+            fail(f"the f64 kernel route disagrees with {dense_name} on {name}")
+        out[name] = timing
+        del ham, c
+        torch.cuda.empty_cache()
+    return out
 
 
 STEPS = ("postselect", "recovery", "recovery on the device", "subsampling",
@@ -628,6 +746,7 @@ class Probe:
         def counted_solve(fn):
             def wrapper(ci_strings, *args, **kwargs):
                 launches, builds = cross_spin.cross_spin_matvec.launches, len(self.builds)
+                f64_launches = cross_spin.cross_spin_matvec_f64.launches
                 card_builds = card_tables.build_tables.launches
                 variants, fills = len(self.variants), self.sparse_fills
                 davidson = len(self.davidson)
@@ -636,6 +755,7 @@ class Probe:
                     "davidson": self.davidson[davidson:],
                     "shape": (len(ci_strings[0]), len(ci_strings[1])),
                     "launches": cross_spin.cross_spin_matvec.launches - launches,
+                    "f64_launches": cross_spin.cross_spin_matvec_f64.launches - f64_launches,
                     "builds": self.builds[builds:],
                     "variants": sorted(set(self.variants[variants:])),
                     "sparse_fills": self.sparse_fills - fills,
@@ -808,7 +928,8 @@ def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solv
 
 def sqd_loop_phase(dev, smi, h1, eri, ecore):
     """Phase 6: the SQD loop at full width.  Returns the kernel's launches in
-    it, its best result, iteration 0's batch results and its seconds."""
+    it, its best result, iteration 0's batch results, its seconds and the f64
+    kernel's launches in it."""
     import numpy as np
 
     from sqd_tpu_torch.ops import bitpack
@@ -844,18 +965,20 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
         "the table cache reused rows": probe.cache.native_rows_computed < strings_solved,
         "no card table build (the table cache serves every solve)": all(
             s["card_builds"] == 0 for s in probe.solves),
+        "every batch f64 refinement ran the f64 kernel, no blocked matvec": all(
+            s["f64_launches"] > 0 and not s["variants"] for s in probe.solves),
     })
     for what, ok in checks.items():
         if not ok:
             fail(f"sqd loop: {what}")
-    return launches, best, probe.history[0], t_loop
+    return launches, best, probe.history[0], t_loop, sum(s["f64_launches"] for s in probe.solves)
 
 
-def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]:
+def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, int, dict, float, float]:
     """Phase 7: the full N2/6-31G CASCI (C(16,5)^2 = 19,079,424 determinants)
-    through ``solve_sci`` with its defaults.  Returns the kernel's launches in
-    the solve, its times at this shape, its largest difference from the
-    plain version and the total energy."""
+    through ``solve_sci`` with its defaults.  Returns the kernel's and the f64
+    kernel's launches in the solve, the kernel's times at this shape, its
+    largest difference from the plain version and the total energy."""
     import numpy as np
     import torch
 
@@ -879,6 +1002,7 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]
         probe.timed(fermion, "build_sci_hamiltonian", "table builds + upload")
         probe.solve_stages()
         cross_spin.cross_spin_matvec.launches = 0
+        f64_launches = cross_spin.cross_spin_matvec_f64.launches
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
@@ -886,6 +1010,7 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]
         sync()
         t_solve = time.perf_counter() - t0
         launches = cross_spin.cross_spin_matvec.launches
+        f64_launches = cross_spin.cross_spin_matvec_f64.launches - f64_launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     span = probe.spans[-1]
     build = probe.builds[0]
@@ -898,14 +1023,16 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]
           f"{build['shape']}, col_block {build['col_block']}, f64 blocked variants "
           f"{sorted(set(probe.variants))}; {seconds}; Davidson (stage, iterations) "
           f"{probe.davidson}; "
-          f"solve_sci {t_solve:.3f} s, kernel launches {launches}, peak device memory "
+          f"solve_sci {t_solve:.3f} s, kernel launches {launches}, f64 kernel launches "
+          f"{f64_launches}, peak device memory "
           f"{peak:.2f} GB ({smi})", flush=True)
     print(f"casci: energy {e_total:.12f} Ha, published {CASCI_ENERGY:.12f} Ha, "
           f"|dE| {abs(e_total - CASCI_ENERGY):.3e} (gate {TOL_CASCI:.0e})", flush=True)
     checks = {
         "the kernel launched in the f32 Davidson": launches > 0,
         "col_block > 0": build["col_block"] > 0,
-        "the f64 refinement ran the blocked matvec": bool(probe.variants),
+        "the f64 refinement and energy ran the f64 kernel, no blocked matvec":
+            f64_launches > 0 and not probe.variants,
         "amplitudes (4368, 4368) and finite": amps.shape == (4368, 4368)
         and bool(np.isfinite(amps).all()),
         "occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8 and abs(occ_b.sum() - 5) < 1e-8,
@@ -916,12 +1043,12 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, dict, float, float]
     for what, ok in checks.items():
         if not ok:
             fail(f"casci: {what}")
-    return launches, timing, err, e_total
+    return launches, f64_launches, timing, err, e_total
 
 
-def ccpvdz_phase(dev, smi, factor) -> int:
+def ccpvdz_phase(dev, smi, factor) -> tuple[int, int]:
     """Phase 8: BASELINE config 3, the SQD loop on N2/cc-pVDZ over all 28
-    orbitals.  Returns the kernel's launches in it."""
+    orbitals.  Returns the kernel's and the f64 kernel's launches in it."""
     import numpy as np
 
     from sqd_tpu_torch import fermion
@@ -961,7 +1088,8 @@ def ccpvdz_phase(dev, smi, factor) -> int:
           f"operators {[b for s in probe.solves for b in s['builds']]}, card table builds "
           f"{[s['card_builds'] for s in probe.solves]}, sparse same-spin fills "
           f"{[s['sparse_fills'] for s in probe.solves]}, f64 blocked variants "
-          f"{[s['variants'] for s in probe.solves]}, Davidson (stage, iterations) "
+          f"{[s['variants'] for s in probe.solves]}, f64 kernel launches "
+          f"{[s['f64_launches'] for s in probe.solves]}, Davidson (stage, iterations) "
           f"{[s['davidson'] for s in probe.solves]}", flush=True)
     checks.update({
         "every batch above 877 strings per spin (sparse same-spin tables)": all(
@@ -972,8 +1100,8 @@ def ccpvdz_phase(dev, smi, factor) -> int:
         "every batch operator has col_block > 0 and an attached eri_chol": all(
             len(s["builds"]) == 1 and s["builds"][0]["col_block"] > 0
             and s["builds"][0]["eri_chol"] for s in probe.solves),
-        "every batch f64 refinement ran a blocked matvec": all(
-            s["variants"] for s in probe.solves),
+        "every batch f64 refinement ran the f64 kernel, no blocked matvec": all(
+            s["f64_launches"] > 0 and not s["variants"] for s in probe.solves),
         "sub-batch energy within 1e-7 Ha of sqd_tpu's": sub_diff < TOL_ENERGY,
         "best energy vs host f64": abs(best.energy - e_host) < TOL_ENERGY,
         "best occupancies sum to (7, 7)": abs(occ_a.sum() - 7) < 1e-8
@@ -983,7 +1111,7 @@ def ccpvdz_phase(dev, smi, factor) -> int:
     for what, ok in checks.items():
         if not ok:
             fail(f"ccpvdz loop: {what}")
-    return launches
+    return launches, sum(s["f64_launches"] for s in probe.solves)
 
 
 def pauli_host_energy(ints, paulis, coeffs, vec) -> float:
@@ -1369,9 +1497,9 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
     by_dense, by_kernel = dense.matvec(c32), ham32.matvec(c32)
     scale = max(float(ref.abs().max()), 1.0)
     diffs = {  # what: (largest difference, bound)
-        "kernel-route f32 vs blocked f64": (float((by_kernel - ref).abs().max()),
-                                            TOL_KERNEL * scale),
-        "dense f32 vs blocked f64": (float((by_dense - ref).abs().max()), TOL_DENSE * scale),
+        "kernel-route f32 vs exact f64": (float((by_kernel - ref).abs().max()),
+                                          TOL_KERNEL * scale),
+        "dense f32 vs exact f64": (float((by_dense - ref).abs().max()), TOL_DENSE * scale),
         "dense f32 vs kernel-route f32": (float((by_dense - by_kernel).abs().max()),
                                           TOL_DENSE * scale),
     }
@@ -2652,26 +2780,28 @@ def main() -> None:
     if route_err > route_tol:
         fail("the kernel and factored f32 matvecs disagree at npair 784")
     del ham28, c28, by_kernel, by_factor
-    # both blocked f64 variants against _matvec_full on the headline operator
-    # forced to col_block 128, bare and with the spin penalty
+    # both blocked f64 variants against the unblocked dense route on the
+    # headline operator forced to col_block 128, bare and with the spin penalty
     c64 = torch.as_tensor(rng.normal(size=ham64.shape), dtype=torch.float64, device=dev)
     for label, spin in (("bare", {}), ("spin_penalty", {"spin_shift": 0.35, "spin_target": 2.0})):
         blocked = build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=dev,
                                         pad_to=(1024, 1024), col_block=128, **spin)
-        full = blocked._matvec_full(c64)
+        full = blocked._matvec_dense(c64)
         scale = max(float(full.abs().max()), 1.0)
-        line = [f"f64 _matvec_full {np.median([event_ms(lambda: blocked._matvec_full(c64), 3) for _ in range(3)]):.3f} ms"]
+        line = [f"f64 _matvec_dense {np.median([event_ms(lambda: blocked._matvec_dense(c64), 3) for _ in range(3)]):.3f} ms"]
         for name in BLOCKED_VARIANTS:
             diff = float((getattr(blocked, name)(c64) - full).abs().max())
             ms = np.median([event_ms(lambda: getattr(blocked, name)(c64), 3) for _ in range(3)])
             line.append(f"{name.split('__')[-1]} {ms:.3f} ms, max|diff| {diff:.3e}")
             if diff > 1e-12 * scale:
-                fail(f"{name} disagrees with _matvec_full ({label})")
+                fail(f"{name} disagrees with _matvec_dense ({label})")
         print(f"blocked f64 matvecs [{label}] at {tuple(c64.shape)}, col_block 128 ({smi}): "
               f"{'; '.join(line)} (bound {1e-12 * scale:.3e}; medians of 3 rounds of 3 calls)",
               flush=True)
     del blocked, full, c64
     torch.cuda.empty_cache()
+    # -- 3c. the f64 kernel ---------------------------------------------------
+    f64_kernel = f64_kernel_phase(dev, smi, rng, ham64)
 
     # -- 3b. the table kernels against the native build ----------------------
     h26, eri26 = h1_28[2:, 2:].copy(), eri_28[2:, 2:, 2:, 2:].copy()  # the frozen-core cell's
@@ -2717,13 +2847,15 @@ def main() -> None:
         card_tables.build_tables.launches = card_tables.gather_tables.launches = 0
 
     card_tables.build_tables.launches = card_tables.gather_tables.launches = 0
-    cross_spin.cross_spin_matvec.launches = 0
-    sync()
-    t0 = time.perf_counter()
-    result = solve_sci((strs_a, strs_b), h1, eri, norb, nelec, device="cuda")
-    sync()
-    t_solve = time.perf_counter() - t0
+    cross_spin.cross_spin_matvec.launches = cross_spin.cross_spin_matvec_f64.launches = 0
+    with Probe() as probe:  # records any column-blocked f64 matvec
+        sync()
+        t0 = time.perf_counter()
+        result = solve_sci((strs_a, strs_b), h1, eri, norb, nelec, device="cuda")
+        sync()
+        t_solve = time.perf_counter() - t0
     launches = cross_spin.cross_spin_matvec.launches
+    f64_launches = cross_spin.cross_spin_matvec_f64.launches
     took("5")
     amps = result.sci_state.amplitudes
     vec = np.zeros(ham64.shape)
@@ -2731,10 +2863,14 @@ def main() -> None:
     e_host = host_f64_energy(ham64, vec)
     occ_a, occ_b = result.orbital_occupancies
     print(f"solve_sci: energy {result.energy + ecore:.12f} Ha, kernel launches {launches}, "
+          f"f64 kernel launches {f64_launches}, f64 blocked variants "
+          f"{sorted(set(probe.variants))}, "
           f"{t_solve:.3f} s; |E - host f64| {abs(result.energy - e_host):.3e}, "
           f"|E - sqd_tpu| {abs(result.energy - recorded['energy']):.3e}", flush=True)
     checks = {
         "kernel launched during the solve": launches > 0,
+        "the f64 refinement and energy ran the f64 kernel, no blocked matvec":
+            f64_launches > 0 and not probe.variants,
         "the card built the solve's tables once": table_launches["5"][0] == 1,
         "amplitudes (1000, 1000) and finite": amps.shape == (1000, 1000)
         and bool(np.isfinite(amps).all()),
@@ -2752,11 +2888,13 @@ def main() -> None:
     took("5 tables by 'native' and 'device'")
 
     # -- 6. the SQD loop; 7. the full CASCI; 8. the cc-pVDZ loop -------------
-    loop_launches, loop_best, loop_it0, t_loop = sqd_loop_phase(dev, smi, h1, eri, ecore)
+    loop_launches, loop_best, loop_it0, t_loop, loop_f64_launches = sqd_loop_phase(
+        dev, smi, h1, eri, ecore)
     took("6")
-    casci_launches, casci, casci_err, e_casci = casci_phase(dev, smi, h1, eri, ecore, rng)
+    casci_launches, casci_f64_launches, casci, casci_err, e_casci = casci_phase(
+        dev, smi, h1, eri, ecore, rng)
     took("7")
-    ccpvdz_launches = ccpvdz_phase(dev, smi, factor_28)
+    ccpvdz_launches, ccpvdz_f64_launches = ccpvdz_phase(dev, smi, factor_28)
     took("8")
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
 
@@ -2863,6 +3001,22 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes this contraction
         "at_shapes": {"ccpvdz": ccpvdz, "casci": casci, "config5": config5,
                       "row_restricted": row_restricted, "example13": example13},
+    }, {
+        "name": "cross_spin_matvec_f64",
+        "route": "cuda",
+        "source": "sqd_tpu_torch/csrc/cross_spin_matvec.cu",
+        "replaces": None,  # sqd_tpu sends f64 to XLA's dense route
+        "launches": f64_launches,
+        "launches_sqd_loop": loop_f64_launches,
+        "launches_casci": casci_f64_launches,
+        "launches_ccpvdz_loop": ccpvdz_f64_launches,
+        "max_abs_err": max(t["max_abs_err"] for t in f64_kernel.values()),
+        "ms": f64_kernel["headline"]["ms"],
+        "plain_ms": f64_kernel["headline"]["plain_ms"],
+        "bound_ms": f64_kernel["headline"]["bound_ms"],
+        "bound_by": f64_kernel["headline"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this contraction
+        "at_shapes": f64_kernel,
     }, {
         "name": "sci_tables",
         "route": "cuda",

@@ -238,3 +238,200 @@ extern "C" int cross_spin_matvec_f32(const float* c, int m, int n, const int* ka
         kp, tile_cols, tile_rs, out);
     return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The same channel in f64, for the exact operator: the f64 Davidson
+// refinement, the f64 Davidson of small subspaces and the f64 energy.
+//
+// It replaces no TPU kernel: sqd_tpu sends f64 to XLA's dense route, which
+// gathers every pair into an (npair, M, N) tensor, multiplies it by the whole
+// npair x npair matrix and gathers back (2 npair^2 M N FLOPs: 3.5 TFLOP an
+// application at npair 1296 and 10^6 determinants, most of them on
+// excitations that leave the subspace).  It was added because that dense
+// product was most of a solve on this card.  It computes the function of
+// cross_spin_kernel above, with the same formulation, in f64: f64 loads, f64
+// FMAs (DFMA) into an f64 register sum per output element, in a fixed order
+// of summation and with no atomics.  Tensor cores do not apply, for the
+// reason given above: there is no dense product.
+//
+// What bounds it on this card.  The in-set couples' FLOPs at the H100's 34
+// TFLOP/s f64 rate outside the tensor cores (the headline's 0.78 GFLOP:
+// 23 us), or its bytes, inputs read and output written once at 3.35 TB/s
+// (the headline's 18.4 MB: c and sigma 8.4 MB each, the tables and the
+// 0.5-MB matrix: 5.5 us), whichever is larger: operations bound it at the
+// headline, config 5 and the CASCI, bytes at npair 784, where a row has
+// few valid pairs.  What limits this design is what limits the f32 one,
+// twice over: each FMA reads two 8-byte operands from shared memory (16
+// bytes a FMA against the f32 kernel's 8), so shared-memory bandwidth caps
+// it near an eighth of the DFMA rate, and the 8-byte rows halve the pair
+// rows and columns one block stages.  The design keeps every operand read
+// once from shared memory per FMA, in 16-byte reads that spread over the
+// bank groups, and keeps the walks over the beta tables few:
+// * rows of A_i and of the gathered c are double2 groups, with a stride
+//   whose count of 16-byte groups is odd (plan() and row_stride() in
+//   ops/cross_spin.py with itemsize 8);
+// * A_i stays whole beside a column tile of at least 128 columns (the CASCI:
+//   npair 256, up to 60 pairs a row, 210 columns a tile), so one walk of
+//   each column's entries per k tile; past that (npair 676 or 1296) the rs
+//   axis is tiled as in the f32 kernel, half the rows each;
+// * the pair lists take 16 bytes a pair, as two 8-byte rows: the signs in
+//   f64, then the pair indices and sources in int32.
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads, 1)
+cross_spin_f64_rows(const double* __restrict__ c, int n,
+                    const int* __restrict__ ka_n, const int* __restrict__ ka_pq,
+                    const int* __restrict__ ka_src, const double* __restrict__ ka_sgn, int ka,
+                    const int* __restrict__ kb_n, const int* __restrict__ kb_rs,
+                    const int* __restrict__ kb_src, const double* __restrict__ kb_sgn,
+                    const double* __restrict__ eri_t, int npair,
+                    int kp, int tile_cols, int tile_rs, double* __restrict__ out) {
+    extern __shared__ double2 smem2[];
+    const int kq = kp >> 1;                                  // double2 groups per row
+    double2* a2 = smem2;                                     // tile_rs x kp: A_i[rs][l]
+    double2* c2 = smem2 + (size_t)tile_rs * kq;              // tile_cols x kp: c[src_l, k]
+    double* a_s = reinterpret_cast<double*>(a2);
+    double* sgn_s = reinterpret_cast<double*>(c2 + (size_t)tile_cols * kq);  // 2 x kp: row i's pairs
+    int* pq_s = reinterpret_cast<int*>(sgn_s + kp);
+    int* src_s = pq_s + kp;
+
+    const int i = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int nv = ka_n[i];
+    double* out_row = out + (size_t)i * n;
+    if (nv == 0) {  // uniform across the block
+        for (int j = tid; j < n; j += kThreads) out_row[j] = 0.0;
+        return;
+    }
+    const int nq = (nv + 1) >> 1;  // double2 groups of one dot product
+    const int lw = nq << 1;        // staged width; lanes l >= nv hold zeros
+    for (int l = tid; l < lw; l += kThreads) {
+        const bool ok = l < nv;
+        pq_s[l] = ok ? ka_pq[(size_t)i * ka + l] : 0;
+        src_s[l] = ok ? ka_src[(size_t)i * ka + l] : 0;
+        sgn_s[l] = ok ? ka_sgn[(size_t)i * ka + l] : 0.0;
+    }
+    const bool rs_tiled = tile_rs < npair;
+    const int warp = tid >> 5, lane = tid & 31;
+
+    for (int j0 = 0; j0 < n; j0 += kChunk) {
+        double acc[kColsPerThread];
+        int cur[kColsPerThread], end[kColsPerThread];
+#pragma unroll
+        for (int u = 0; u < kColsPerThread; ++u) {
+            const int j = j0 + tid + u * kThreads;
+            acc[u] = 0.0;
+            cur[u] = 0;
+            end[u] = j < n ? kb_n[j] : 0;
+        }
+        for (int k0 = 0; k0 < n; k0 += tile_cols) {
+            const int nk = min(tile_cols, n - k0);
+            const int k1 = k0 + nk;
+            __syncthreads();  // the pair lists are staged; the previous tile's reads are done
+            // c_s[kk][l] = c[src_l, k0 + kk]: a thread per column kk, loads
+            // coalesced along the rows of c, one 16-byte store per 2 lanes
+            for (int kk = tid; kk < nk; kk += kThreads) {
+                const double* ccol = c + k0 + kk;
+                double2* dst = c2 + (size_t)kk * kq;
+#pragma unroll 4
+                for (int g = 0; g < nq; ++g) {
+                    const int l = 2 * g;
+                    const double v0 = __ldg(ccol + (size_t)src_s[l] * n);
+                    const double v1 = l + 1 < nv ? __ldg(ccol + (size_t)src_s[l + 1] * n) : 0.0;
+                    dst[g] = make_double2(v0, v1);
+                }
+            }
+            for (int r0 = 0; r0 < npair; r0 += tile_rs) {
+                const int r1 = min(npair, r0 + tile_rs);
+                if (r0 > 0) __syncthreads();  // the previous rs tile's reads are done
+                if (rs_tiled || (j0 == 0 && k0 == 0)) {
+                    // a_s[r][l] = eri_t[r0 + r, pq_l] * sgn_l: a warp per row
+#pragma unroll 4
+                    for (int r = warp; r < r1 - r0; r += kWarps) {
+                        const double* erow = eri_t + (size_t)(r0 + r) * npair;
+                        for (int l = lane; l < lw; l += 32)
+                            a_s[(size_t)r * kp + l] = l < nv ? __ldg(erow + pq_s[l]) * sgn_s[l] : 0.0;
+                    }
+                }
+                __syncthreads();  // both tiles are staged
+#pragma unroll
+                for (int u = 0; u < kColsPerThread; ++u) {
+                    const int j = j0 + tid + u * kThreads;
+                    if (j >= n) continue;
+                    const int stop = end[u];
+                    double s = acc[u];
+                    int t = cur[u];
+                    // entry t's indices, loaded one entry ahead of its use
+                    int k = 0, rs = 0;
+                    double sg = 0.0;
+                    if (t < stop) {
+                        const size_t e = (size_t)t * n + j;
+                        k = kb_src[e];
+                        rs = kb_rs[e];
+                        sg = kb_sgn[e];
+                    }
+                    while (t < stop && k < k1) {  // the run of this k tile
+                        int k_next = 0, rs_next = 0;
+                        double sg_next = 0.0;
+                        if (t + 1 < stop) {
+                            const size_t e = (size_t)(t + 1) * n + j;
+                            k_next = kb_src[e];
+                            rs_next = kb_rs[e];
+                            sg_next = kb_sgn[e];
+                        }
+                        if (!rs_tiled || (rs >= r0 && rs < r1)) {
+                            const double2* ap = a2 + (size_t)(rs - r0) * kq;
+                            const double2* bp = c2 + (size_t)(k - k0) * kq;
+                            double d = 0.0;
+                            for (int g = 0; g < nq; ++g) {
+                                const double2 a = ap[g];
+                                const double2 b = bp[g];
+                                d = fma(a.x, b.x, d);
+                                d = fma(a.y, b.y, d);
+                            }
+                            s = fma(sg, d, s);
+                        }
+                        k = k_next;
+                        rs = rs_next;
+                        sg = sg_next;
+                        ++t;
+                    }
+                    acc[u] = s;
+                    if (r1 == npair) cur[u] = t;  // every rs tile has walked the run
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kColsPerThread; ++u) {
+            const int j = j0 + tid + u * kThreads;
+            if (j < n) out_row[j] = acc[u];
+        }
+    }
+}
+
+}  // namespace
+
+// As cross_spin_matvec_f32, in f64: c, ka_sgn, kb_sgn, eri_t and out are
+// f64; kp >= ka is the shared row stride in doubles (even); tile_cols
+// columns of c and tile_rs pair rows of A are staged per block, with row i's
+// pair lists: (tile_cols + tile_rs + 2) * kp doubles of shared memory.
+extern "C" int cross_spin_matvec_f64(const double* c, int m, int n, const int* ka_n,
+                                     const int* ka_pq, const int* ka_src, const double* ka_sgn,
+                                     int ka, const int* kb_n, const int* kb_rs,
+                                     const int* kb_src, const double* kb_sgn,
+                                     const double* eri_t, int npair, int kp, int tile_cols,
+                                     int tile_rs, double* out, void* stream) {
+    if (m <= 0 || n <= 0) return 0;
+    const size_t smem = sizeof(double) * (size_t)kp * ((size_t)tile_cols + tile_rs + 2);
+    if (kp < ka || kp % 2 != 0 || tile_cols < 1 || tile_rs < 1 || tile_rs > npair ||
+        smem > (size_t)kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        cross_spin_f64_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cross_spin_f64_rows<<<m, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        c, n, ka_n, ka_pq, ka_src, ka_sgn, ka, kb_n, kb_rs, kb_src, kb_sgn, eri_t, npair,
+        kp, tile_cols, tile_rs, out);
+    return (int)cudaGetLastError();
+}

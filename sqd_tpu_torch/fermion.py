@@ -304,8 +304,10 @@ def solve_sci(
             :func:`~sqd_tpu_torch.ops.davidson.davidson_ground_state_segmented`
             with its 25-iteration segments, as ``sqd_tpu`` does.  The f64
             refinement, the energy and the RDMs come from the exact operator
-            either way; at very large ``norb`` each refine iteration costs a
-            dense-ERI f64 matvec, so consider ``refine_iterations=0`` there.
+            either way: on the card its f64 cross-spin kernel, which
+            contracts only the in-subspace excitations; on the CPU a dense
+            f64 matvec over all ``norb**2`` pairs, so consider
+            ``refine_iterations=0`` there at very large ``norb``.
         table_cache: an :class:`~sqd_tpu_torch.ops.table_cache.TableCache`
             reused across solves on the same integrals (same tables, less
             host work).

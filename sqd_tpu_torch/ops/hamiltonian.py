@@ -8,11 +8,14 @@ Cartesian product, the projected Hamiltonian splits exactly into
 
 * ``H_ab = sum_pqrs (pq|rs) E^a_pq E^b_rs`` (opposite spin): per-pair gathers,
   one matmul over the ``norb^2`` pair axis, gathers back.  In f32 it runs
-  through :mod:`sqd_tpu_torch.ops.cross_spin` (the CUDA kernel on the card);
-  in f64 through :meth:`SCIHamiltonian._matvec_full`, or past
-  ``sqd_tpu``'s size budget through the column-blocked
-  :meth:`SCIHamiltonian._matvec_blocked`, as ``sqd_tpu`` sends f64 to XLA
-  and only f32 to its Pallas kernel.
+  through :mod:`sqd_tpu_torch.ops.cross_spin` (the f32 CUDA kernel on the
+  card).  In f64, the exact operator, it runs on the card through the f64
+  CUDA kernel of the same module, which contracts only the excitations that
+  stay in the subspace; on the CPU through the dense
+  :meth:`SCIHamiltonian._matvec_dense`, or past ``sqd_tpu``'s size budget
+  through the column-blocked :meth:`SCIHamiltonian._matvec_blocked`, as
+  ``sqd_tpu`` sends f64 to XLA's dense route and only f32 to its Pallas
+  kernel.
 * ``H_aa`` / ``H_bb`` (same spin): padded Slater-Condon neighbour lists
   applied as row/column gathers.
 
@@ -32,7 +35,8 @@ Index tables are stored as int64 — the dtype torch's gathers take — once at
 build time, never converted per matvec.
 
 The blocking thresholds below are ``sqd_tpu``'s, sized for a TPU's memory,
-and kept so that the port takes ``sqd_tpu``'s path for every shape.
+and kept so that the port takes ``sqd_tpu``'s path for every shape on the
+CPU (the card's f64 kernel makes no dense intermediates to bound).
 """
 
 from __future__ import annotations
@@ -180,8 +184,16 @@ class SCIHamiltonian(SCIBasis):
     col_block: int = 0  # beta-column block of the f64 cross-spin channel; 0 = unblocked
 
     def astype(self, dtype: torch.dtype) -> "SCIHamiltonian":
-        """Cast the floating-point payload once (so matvecs avoid per-call casts)."""
-        return dataclasses.replace(
+        """Cast the floating-point payload once (so matvecs avoid per-call casts).
+
+        An operator whose payload is all in ``dtype`` already is returned
+        itself, with its cached cross-spin operands; a cast copy shares this
+        operator's compacted cross-spin tables (:meth:`cross_spin_operands`).
+        """
+        payload = (self.eri_t, self.nbr_val_a, self.nbr_val_b, self.hdiag, self.eri_chol)
+        if all(t is None or t.dtype == dtype for t in payload):
+            return self
+        out = dataclasses.replace(
             self,
             eri_t=self.eri_t.to(dtype),
             nbr_val_a=self.nbr_val_a.to(dtype),
@@ -189,6 +201,7 @@ class SCIHamiltonian(SCIBasis):
             hdiag=self.hdiag.to(dtype),
             eri_chol=None if self.eri_chol is None else self.eri_chol.to(dtype),
         )
+        return _sharing_tables(out, self)
 
     def _use_chol(self, dtype: torch.dtype) -> bool:
         """The factored contraction is for f32 only."""
@@ -206,19 +219,29 @@ class SCIHamiltonian(SCIBasis):
         lf = self.eri_chol.to(flat.dtype)
         return (flat @ lf.T) @ lf
 
-    def cross_spin_operands(self) -> cross_spin.CrossSpinOperands:
-        """The f32 cross-spin operands with the penalty folded into ``eri``.
+    def cross_spin_operands(self, dtype: torch.dtype = torch.float32
+                            ) -> cross_spin.CrossSpinOperands:
+        """The cross-spin operands in ``dtype`` (f32 for the f32 kernel, f64
+        for the f64 one) with the penalty folded into ``eri``.
 
-        Built on first use and cached on this operator.  The spin penalty's
-        mixed term ``-shift * sum_pq E^a_pq E^b_qp`` has the same (coefficient
-        x alpha gather x beta gather) shape as the cross-spin contraction, so
-        ``-shift`` goes into ``eri[qp, pq]``.
+        Built on first use and cached on this operator, one set a dtype.  The
+        compacted tables do not depend on the dtype: they are built once and
+        shared by every set, and with the copies :meth:`astype` makes.  The
+        spin penalty's mixed term ``-shift * sum_pq E^a_pq E^b_qp`` has the
+        same (coefficient x alpha gather x beta gather) shape as the
+        cross-spin contraction, so ``-shift`` goes into ``eri[qp, pq]``.
         """
-        ops = self.__dict__.get("_cross_spin_operands")
+        cache = self.__dict__.setdefault("_cross_spin_operands", {})
+        ops = cache.get(dtype)
         if ops is None:
-            eri = self.penalty_folded_eri(torch.float32)
-            ops = cross_spin.prepare(self.src_a, self.sign_a, self.src_b, self.sign_b, eri)
-            object.__setattr__(self, "_cross_spin_operands", ops)
+            eri = self.penalty_folded_eri(dtype)
+            tables = self.__dict__.setdefault("_cross_spin_tables", [])
+            if tables:
+                ops = cross_spin.with_eri(tables[0], eri)
+            else:
+                ops = cross_spin.prepare(self.src_a, self.sign_a, self.src_b, self.sign_b, eri)
+                tables.append(ops)
+            cache[dtype] = ops
         return ops
 
     def penalty_folded_eri(self, dtype: torch.dtype) -> torch.Tensor:
@@ -270,24 +293,33 @@ class SCIHamiltonian(SCIBasis):
     def matvec(self, c: torch.Tensor) -> torch.Tensor:
         """``sigma = (P H P) c`` (+ the spin penalty if configured).
 
-        f32 goes through the cross-spin kernel wrapper (the Pallas dispatch of
-        ``sqd_tpu``, which also takes only f32; the kernel covers every
-        shape); every other dtype through :meth:`_matvec_blocked` when the
-        operator is column-blocked, else :meth:`_matvec_full`.
+        f32 goes through the f32 cross-spin kernel's wrapper (the Pallas
+        dispatch of ``sqd_tpu``, which also takes only f32; the kernel covers
+        every shape).  Every other dtype is the exact operator,
+        :meth:`_matvec_full`: on a CUDA tensor in f64 the f64 cross-spin
+        kernel, at any shape; else, as in ``sqd_tpu``, the dense route, which
+        is column-blocked (:meth:`_matvec_blocked`) when the operator is.
         """
         with highest_precision():
             if c.dtype == torch.float32:
                 with span("matvec.kernel"):
                     return self._matvec_kernel(c)
-            if self.col_block and c.shape[1] > self.col_block:
+            if self.col_block and c.shape[1] > self.col_block and not _f64_kernel_takes(c):
                 with span("matvec.blocked"):
                     return self._matvec_blocked(c)
             with span("matvec.full"):
                 return self._matvec_full(c)
 
     def _matvec_kernel(self, c: torch.Tensor) -> torch.Tensor:
-        """Cross-spin channel via :func:`cross_spin.cross_spin_matvec` + same-spin."""
-        sigma = cross_spin.cross_spin_matvec(c, self.cross_spin_operands())
+        """Cross-spin channel via the kernel of ``c``'s dtype
+        (:func:`cross_spin.cross_spin_matvec` in f32,
+        :func:`cross_spin.cross_spin_matvec_f64` in f64) + same-spin; the
+        penalty's mixed term rides in the operands' ``eri``."""
+        ops = self.cross_spin_operands(c.dtype)
+        if c.dtype == torch.float32:
+            sigma = cross_spin.cross_spin_matvec(c, ops)
+        else:  # the exact operator takes any layout, as the dense route did
+            sigma = cross_spin.cross_spin_matvec_f64(c.contiguous(), ops)
         with span("matvec.samespin"):
             sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
         if self.spin_shift != 0.0:
@@ -295,6 +327,17 @@ class SCIHamiltonian(SCIBasis):
         return sigma
 
     def _matvec_full(self, c: torch.Tensor) -> torch.Tensor:
+        """The whole operator at once: on a CUDA tensor in f64 the f64 kernel
+        route (:meth:`_matvec_kernel`), which makes no dense intermediates;
+        else :meth:`_matvec_dense`."""
+        if _f64_kernel_takes(c):
+            return self._matvec_kernel(c)
+        return self._matvec_dense(c)
+
+    def _matvec_dense(self, c: torch.Tensor) -> torch.Tensor:
+        """``sqd_tpu``'s unblocked route: every pair gathered into an
+        ``(npair, M, N)`` tensor, one matmul over the pair axis (through the
+        factor for f32 where one is attached), gathers back."""
         m, n = c.shape
         npair = self.norb * self.norb
         d_a = self.gather_alpha(c)  # (npair, M, N)
@@ -448,6 +491,19 @@ class SCIHamiltonian(SCIBasis):
         return sigma
 
 
+def _sharing_tables(ham: SCIHamiltonian, source: SCIHamiltonian) -> SCIHamiltonian:
+    """``ham``, a copy of ``source`` with the same gather tables, made to
+    share ``source``'s compacted cross-spin tables; returns ``ham``."""
+    ham.__dict__["_cross_spin_tables"] = source.__dict__.setdefault("_cross_spin_tables", [])
+    return ham
+
+
+def _f64_kernel_takes(c: torch.Tensor) -> bool:
+    """Whether the exact operator applies to ``c`` through the f64 kernel:
+    f64 amplitudes on a CUDA device."""
+    return c.dtype == torch.float64 and c.device.type == "cuda"
+
+
 def sci_matvec_flat(ham: SCIHamiltonian, x: torch.Tensor) -> torch.Tensor:
     """Flat-vector matvec adapter for the Davidson driver."""
     m, n = ham.shape
@@ -459,14 +515,16 @@ def expectation_value(
 ) -> float:
     """``<c|H|c> / <c|c>`` as a plain f64 Rayleigh quotient.
 
-    The card has true f64 matmuls, so ``sqd_tpu``'s chunk-accumulated TPU
-    scheme is not needed; this is its CPU branch.
+    The card computes in true f64 (on the f64 kernel route of
+    :meth:`SCIHamiltonian.matvec`), so ``sqd_tpu``'s chunk-accumulated TPU
+    scheme is not needed; this is its CPU branch.  An f64 operator is used
+    as it is, with its cached operands.
     """
     m, n = ham.shape
     with span("energy"):
         ham_e = ham.astype(torch.float64)
         if not spin_penalty and ham.spin_shift != 0.0:
-            ham_e = dataclasses.replace(ham_e, spin_shift=0.0)
+            ham_e = _sharing_tables(dataclasses.replace(ham_e, spin_shift=0.0), ham_e)
         c64 = c.to(torch.float64).reshape(m, n)
         hv = ham_e.matvec(c64)
         return float(torch.sum(c64 * hv) / torch.sum(c64 * c64))

@@ -24,8 +24,8 @@ Phases, each printing one line; any failure exits non-zero:
    the headline and the 28-orbital shapes from CUDA events, the kernel's
    bound there (the larger of its FLOPs at the f32 rate and its bytes at
    the HBM rate, counted from the operands), one f32 matvec's time, one
-   f32 matvec at npair 784 by the kernel route and by the Cholesky-factored
-   route, and both column-blocked f64 matvecs against ``_matvec_dense`` on
+   f32 matvec at npair 784 by the kernel route and by the dense route
+   (``_matvec_full``), and both column-blocked f64 matvecs against ``_matvec_dense`` on
    the headline operator forced to ``col_block`` 128, bare and with the
    spin penalty, within ``1e-12 * max(|full|, 1)``;
 3c. the f64 kernel (:func:`f64_kernel_phase`), the exact operator's
@@ -33,7 +33,8 @@ Phases, each printing one line; any failure exits non-zero:
    config 5 (3168 x 3200, npair 1296) and the CASCI (4384 x 4480): against
    its plain version in f64 (small k and rs tiles forced at the first two),
    and the f64 ``matvec``, which must launch it, against the dense route the
-   CPU takes (``_matvec_dense`` or ``_matvec_blocked``), within
+   CPU takes (``_matvec_dense`` or ``_matvec_blocked``, the operators built
+   with the CPU's column block), within
    ``1e-12 * max(|reference|, 1)``; its time beside its bound (its FLOPs at
    the 34 TFLOP/s f64 rate or its bytes at the HBM rate) and the plain
    version's, and one f64 matvec by each route;
@@ -87,15 +88,15 @@ Phases, each printing one line; any failure exits non-zero:
 8. cc-pVDZ loop — BASELINE config 3: the SQD loop on N2/cc-pVDZ over all 28
    orbitals, (7,7)e (``sqd_tpu_torch/data/n2_ccpvdz_28o_7a7b.fcidump``),
    with 200,000 shots of 56 bits (:func:`ccpvdz_shots`) and
-   ``CCPVDZ_SETTINGS`` (2 iterations of 2 batches of 1000 x 1000 strings)
-   and an explicit Cholesky factor (``"auto"`` declines these integrals).
+   ``CCPVDZ_SETTINGS`` (2 iterations of 2 batches of 1000 x 1000 strings).
    Iteration 0 must give ``sqd_tpu``'s recorded strings
    (``tools/make_ccpvdz_data.py``), a solve of the recorded sub-batch its
    energy within 1e-7 Ha; the best energy must lie within 1e-7 Ha of a
    host-f64 Rayleigh quotient (alpha-row blocks) and below RHF, its
    occupancies sum to (7, 7); every batch solve must build its tables on
-   the card (one ``build_tables`` launch), a column-blocked operator with the factor attached,
-   launch the kernel and, for the refinement, the f64 kernel and no blocked f64 matvec;
+   the card (one ``build_tables`` launch), an operator with no column block
+   and no pair factor, launch the kernel and, for the refinement, the f64
+   kernel and no blocked f64 matvec;
 9. qubit path — (a) ``bench.py``'s projection headline: ``pauli_term_table``
    for Z^n over d = 5e7 random unique 40- and 60-qubit strings (seeds 3 and
    4, sorted and deduplicated on the card), best of 3, its signs summing to
@@ -123,7 +124,8 @@ Phases, each printing one line; any failure exits non-zero:
    27 + 27 electrons, synthetic PSD integrals of rank 108, the same 3163
    two-word excitation strings for both spins, 10,004,569 determinants,
    padded 3168 x 3200, npair 1296).  (a) the operator: ``eri_factor="auto"``
-   must attach the factor and the card must build the tables;
+   must attach the factor, ``col_block="auto"`` give no block, and the card
+   must build the tables;
    the kernel against its plain version at this shape, then timed beside
    its bound; the RDMs' two-hole tables of these strings
    (:func:`two_hole_tables`: int32 sources, as ``sqd_tpu``'s) built, their
@@ -628,27 +630,31 @@ def f64_kernel_phase(dev, smi, rng, headline) -> dict:
     from sqd_tpu_torch.ops import bitpack, cross_spin
     from sqd_tpu_torch.ops import hamiltonian as ham_ops
 
+    def build(pa, pb, h1, eri, norb, nelec, pad_to):
+        # the CPU's shape and column block, given explicitly ("auto" gives no
+        # block on the card): config 5's unblocked dense route would take ~105 GB
+        m_pad, n_pad, block = ham_ops.padded_layout(norb * norb, len(pa), len(pb), pad_to,
+                                                    "auto", torch.device("cpu"))
+        return ham_ops.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=dev,
+                                             pad_to=(m_pad, n_pad), col_block=block,
+                                             eri_factor=None)
+
     def operator(name):
         if name == "headline":
             return headline
         if name == "ccpvdz":
             dump = read_fcidump(CCPVDZ_STEM + ".fcidump")
-            return ham_ops.build_sci_hamiltonian(
-                bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
-                bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
-                dump["h1e"], dump["eri"], 28, (7, 7), device=dev, pad_to=(1024, 1024),
-                eri_factor=None)
+            return build(bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
+                         bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
+                         dump["h1e"], dump["eri"], 28, (7, 7), (1024, 1024))
         if name == "config5":
             h5, eri5, strs5 = config5_problem()
             p5 = bitpack.pack_ints(strs5, CONFIG5["norb"])
             pad = -(-len(strs5) // 32) * 32
-            return ham_ops.build_sci_hamiltonian(p5, p5, h5, eri5, CONFIG5["norb"],
-                                                 CONFIG5["nelec"], device=dev,
-                                                 pad_to=(pad, pad), eri_factor=None)
+            return build(p5, p5, h5, eri5, CONFIG5["norb"], CONFIG5["nelec"], (pad, pad))
         dump = read_fcidump(DATA_STEM + ".fcidump")
         packed = bitpack.pack_ints(all_strings(16, 5), 16)
-        return ham_ops.build_sci_hamiltonian(packed, packed, dump["h1e"], dump["eri"], 16,
-                                             (5, 5), device=dev, pad_to=(4384, 4384))
+        return build(packed, packed, dump["h1e"], dump["eri"], 16, (5, 5), (4384, 4384))
 
     forced = {"headline": (128, 96), "ccpvdz": (64, 40)}
     rounds = {"headline": (10, 10), "ccpvdz": (5, 5), "config5": (1, 1), "casci": (2, 1)}
@@ -1030,7 +1036,7 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, int, dict, float, f
           f"|dE| {abs(e_total - CASCI_ENERGY):.3e} (gate {TOL_CASCI:.0e})", flush=True)
     checks = {
         "the kernel launched in the f32 Davidson": launches > 0,
-        "col_block > 0": build["col_block"] > 0,
+        "no column block": build["col_block"] == 0,
         "the f64 refinement and energy ran the f64 kernel, no blocked matvec":
             f64_launches > 0 and not probe.variants,
         "amplitudes (4368, 4368) and finite": amps.shape == (4368, 4368)
@@ -1046,7 +1052,7 @@ def casci_phase(dev, smi, h1, eri, ecore, rng) -> tuple[int, int, dict, float, f
     return launches, f64_launches, timing, err, e_total
 
 
-def ccpvdz_phase(dev, smi, factor) -> tuple[int, int]:
+def ccpvdz_phase(dev, smi) -> tuple[int, int]:
     """Phase 8: BASELINE config 3, the SQD loop on N2/cc-pVDZ over all 28
     orbitals.  Returns the kernel's and the f64 kernel's launches in it."""
     import numpy as np
@@ -1064,7 +1070,7 @@ def ccpvdz_phase(dev, smi, factor) -> tuple[int, int]:
     norb, nelec = 28, (7, 7)
     probe, best, _, launches, checks = run_loop(
         dev, smi, "ccpvdz loop", h1, eri, ecore, norb, nelec,
-        BitArray.from_bool_array(ccpvdz_shots()), CCPVDZ_SETTINGS, {"eri_factor": factor},
+        BitArray.from_bool_array(ccpvdz_shots()), CCPVDZ_SETTINGS, {},
         recorded, stages=True)
     # the recorded sub-batch: the first strings of iteration 0's batch 0
     first = probe.history[0][0].sci_state
@@ -1097,9 +1103,9 @@ def ccpvdz_phase(dev, smi, factor) -> tuple[int, int]:
         # 4558 candidates a string: the cache declines them, the card builds
         "every batch solve built its tables on the card": all(
             s["card_builds"] == 1 and s["sparse_fills"] == 0 for s in probe.solves),
-        "every batch operator has col_block > 0 and an attached eri_chol": all(
-            len(s["builds"]) == 1 and s["builds"][0]["col_block"] > 0
-            and s["builds"][0]["eri_chol"] for s in probe.solves),
+        "every batch operator has no column block and no pair factor": all(
+            len(s["builds"]) == 1 and s["builds"][0]["col_block"] == 0
+            and not s["builds"][0]["eri_chol"] for s in probe.solves),
         "every batch f64 refinement ran the f64 kernel, no blocked matvec": all(
             s["f64_launches"] > 0 and not s["variants"] for s in probe.solves),
         "sub-batch energy within 1e-7 Ha of sqd_tpu's": sub_diff < TOL_ENERGY,
@@ -1460,8 +1466,8 @@ def dense_df_phase(dev, smi, rng) -> tuple[int, dict, float, float, float]:
         "'auto' attached a factor of rank <= npair // 3": rank is not None
         and rank <= norb * norb // 3,
         "the card built the tables": card_builds == 1 and probe.sparse_fills == 0,
-        "padded to (3168, 3200) with a column block": (m, n) == (3168, 3200)
-        and ham64.col_block > 0,
+        "padded to (3168, 3200) with no column block": (m, n) == (3168, 3200)
+        and ham64.col_block == 0,
     }
     for what, ok in checks.items():
         if not ok:
@@ -2676,9 +2682,7 @@ def main() -> None:
     from sqd_tpu_torch.models.fcidump import read_fcidump
     from sqd_tpu_torch.ops import bitpack, card_tables, cross_spin
     from sqd_tpu_torch.ops.davidson import davidson_ground_state, davidson_initial_guess
-    from sqd_tpu_torch.ops.hamiltonian import (
-        build_sci_hamiltonian, pivoted_cholesky_pairs, sci_matvec_flat,
-    )
+    from sqd_tpu_torch.ops.hamiltonian import build_sci_hamiltonian, sci_matvec_flat
     from sqd_tpu_torch.ops.precision import highest_precision
 
     # -- 2. build ----------------------------------------------------------
@@ -2708,18 +2712,13 @@ def main() -> None:
     small_a = pa[np.sort(rng.choice(1000, 37, replace=False))]
     small_b = pb[np.sort(rng.choice(1000, 45, replace=False))]
     # N2/cc-pVDZ over 28 orbitals (phase 8's integrals): a 1000 x 1000 batch
-    # of excitation strings, npair 784.  sqd_tpu's "auto" rank cap (784 // 3)
-    # declines to factor these integrals (rank 365 at 1e-13), so the factor
-    # is computed uncapped and passed explicitly, here and in phase 8.
+    # of excitation strings, npair 784
     dump28 = read_fcidump(CCPVDZ_STEM + ".fcidump")
     h1_28, eri_28 = dump28["h1e"], dump28["eri"]
-    factor_28 = pivoted_cholesky_pairs(eri_28, 28)
-    if factor_28 is None:
-        fail("no pivoted-Cholesky factor of the cc-pVDZ integrals")
     ham28 = build_sci_hamiltonian(
         bitpack.pack_ints(excitation_strings(1000, 28, 7, 3), 28),
         bitpack.pack_ints(excitation_strings(1000, 28, 7, 4), 28),
-        h1_28, eri_28, 28, (7, 7), device=dev, pad_to=(1024, 1024), eri_factor=factor_28,
+        h1_28, eri_28, 28, (7, 7), device=dev, pad_to=(1024, 1024), eri_factor=None,
     ).astype(torch.float32)
     cases = {
         "headline": ham32,
@@ -2764,22 +2763,22 @@ def main() -> None:
           f"(medians of 20 rounds of 10 calls, CUDA events)", flush=True)
     ccpvdz = time_kernel("ccpvdz", ham28, rng, smi, rounds=5)
     # one f32 matvec at npair 784 by each route: the kernel (matvec) and the
-    # Cholesky-factored contraction (_matvec_full with the factor attached)
+    # dense contraction over every pair (_matvec_full)
     c28 = torch.as_tensor(rng.normal(size=ham28.shape), dtype=torch.float32, device=dev)
     with highest_precision():
-        by_kernel, by_factor = ham28.matvec(c28), ham28._matvec_full(c28)
-        route_err = float((by_kernel - by_factor).abs().max())
-        route_tol = TOL_KERNEL * max(float(by_factor.abs().max()), 1.0)
+        by_kernel, by_dense = ham28.matvec(c28), ham28._matvec_full(c28)
+        route_err = float((by_kernel - by_dense).abs().max())
+        route_tol = TOL_KERNEL * max(float(by_dense.abs().max()), 1.0)
         kernel_route = [event_ms(lambda: ham28.matvec(c28), 5) for _ in range(5)]
-        factor_route = [event_ms(lambda: ham28._matvec_full(c28), 5) for _ in range(5)]
+        dense_route = [event_ms(lambda: ham28._matvec_full(c28), 5) for _ in range(5)]
     print(f"f32 matvec at {tuple(c28.shape)}, npair 784 ({smi}): kernel route "
-          f"{float(np.median(kernel_route)):.4f} ms, factored route (rank "
-          f"{factor_28.shape[0]}) {float(np.median(factor_route)):.4f} ms (medians of 5 rounds "
+          f"{float(np.median(kernel_route)):.4f} ms, dense route "
+          f"{float(np.median(dense_route)):.4f} ms (medians of 5 rounds "
           f"of 5 calls, CUDA events); routes differ by {route_err:.3e} (bound {route_tol:.3e})",
           flush=True)
     if route_err > route_tol:
-        fail("the kernel and factored f32 matvecs disagree at npair 784")
-    del ham28, c28, by_kernel, by_factor
+        fail("the kernel and dense f32 matvecs disagree at npair 784")
+    del ham28, c28, by_kernel, by_dense
     # both blocked f64 variants against the unblocked dense route on the
     # headline operator forced to col_block 128, bare and with the spin penalty
     c64 = torch.as_tensor(rng.normal(size=ham64.shape), dtype=torch.float64, device=dev)
@@ -2894,7 +2893,7 @@ def main() -> None:
     casci_launches, casci_f64_launches, casci, casci_err, e_casci = casci_phase(
         dev, smi, h1, eri, ecore, rng)
     took("7")
-    ccpvdz_launches, ccpvdz_f64_launches = ccpvdz_phase(dev, smi, factor_28)
+    ccpvdz_launches, ccpvdz_f64_launches = ccpvdz_phase(dev, smi)
     took("8")
     ccpvdz["max_abs_err"] = errs["ccpvdz"]
 

@@ -311,13 +311,11 @@ def solve_sci(
         table_cache: an :class:`~sqd_tpu_torch.ops.table_cache.TableCache`
             reused across solves on the same integrals (same tables, less
             host work).
-        eri_factor: forwarded to :func:`build_sci_hamiltonian`: ``"auto"``
-            attaches a pivoted-Cholesky factor when ``norb**2 > 256`` and
-            the integrals are PSD at rank ``<= norb**2 // 3``; an explicit
-            ``(X, norb**2)`` array is attached as given; ``None`` attaches
-            none.  Only f32 contractions outside the CUDA kernel use it; the
-            Davidson's f32 matvec on the card goes through the kernel and
-            the exact integrals, and f64 always uses them.
+        eri_factor: the pair factor, read only by ``"dense_df"``, which
+            forwards it to :func:`build_sci_hamiltonian` (``"auto"``: a
+            pivoted-Cholesky factor when ``norb**2 > 256`` and the integrals
+            are PSD at rank ``<= norb**2 // 3``; an ``(X, norb**2)`` array:
+            used as given).  The gather route computes none.
         **kwargs: ignored extras for signature compatibility.
 
     Returns:
@@ -337,6 +335,14 @@ def solve_sci(
         pad_to = None
         if pad_bucket:
             pad_to = (_round_up(m, pad_bucket), _round_up(n, pad_bucket))
+        if matvec_strategy not in ("gather", "dense_df"):
+            raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
+        dense_df = matvec_strategy == "dense_df"
+        if dense_df and spin_sq is not None:
+            raise ValueError(
+                "matvec_strategy='dense_df' does not support the fused spin "
+                "penalty (non-PSD mixed term); use spin_sq=None"
+            )
 
         ham64 = build_sci_hamiltonian(
             pa, pb, one_body_tensor, two_body_tensor, norb, nelec,
@@ -346,18 +352,13 @@ def solve_sci(
             dtype=torch.float64,
             pad_to=pad_to,
             table_cache=table_cache,
-            eri_factor=eri_factor,
+            eri_factor=eri_factor if dense_df else None,
         )
         ham = ham64.astype(solver_dtype)
         hd_flat = ham.hdiag.reshape(-1)
         v0 = davidson_initial_guess(hd_flat, solver_dtype)
         tol_eff = _scaled_tol(hd_flat, tol)
-        if matvec_strategy == "dense_df":
-            if spin_sq is not None:
-                raise ValueError(
-                    "matvec_strategy='dense_df' does not support the fused spin "
-                    "penalty (non-PSD mixed term); use spin_sq=None"
-                )
+        if dense_df:
             if ham64.eri_chol is None:
                 raise ValueError(
                     "matvec_strategy='dense_df' requires a PSD ERI factor — "
@@ -374,14 +375,12 @@ def solve_sci(
                     tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
                 )
             del dense_op  # the W stacks: freed before the f64 tail
-        elif matvec_strategy == "gather":
+        else:
             with span("davidson.solver"):
                 result = davidson_ground_state(
                     sci_matvec_flat, ham, hd_flat, v0,
                     tol=tol_eff, max_subspace=max_subspace, max_iterations=max_cycle,
                 )
-        else:
-            raise ValueError(f"unknown matvec_strategy {matvec_strategy!r}")
         vec_flat = result.vector.to(torch.float64)
         if refine_iterations > 0 and solver_dtype != torch.float64:
             hd64 = ham64.hdiag.reshape(-1)
@@ -484,6 +483,7 @@ def solve_sci_excited(
         spin_target=0.0 if spin_sq is None else float(spin_sq),
         dtype=torch.float64,
         pad_to=pad_to,
+        eri_factor=None,
     )
     ham = ham64.astype(solver_dtype)
     hd_flat = ham.hdiag.reshape(-1)

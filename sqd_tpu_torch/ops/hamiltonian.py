@@ -15,7 +15,7 @@ Cartesian product, the projected Hamiltonian splits exactly into
   :meth:`SCIHamiltonian._matvec_dense`, or past ``sqd_tpu``'s size budget
   through the column-blocked :meth:`SCIHamiltonian._matvec_blocked`, as
   ``sqd_tpu`` sends f64 to XLA's dense route and only f32 to its Pallas
-  kernel.
+  kernel.  Every route contracts the exact ``eri_t``.
 * ``H_aa`` / ``H_bb`` (same spin): padded Slater-Condon neighbour lists
   applied as row/column gathers.
 
@@ -34,9 +34,14 @@ they stay exactly zero through the Krylov iteration.
 Index tables are stored as int64 — the dtype torch's gathers take — once at
 build time, never converted per matvec.
 
+An operator carries only what its route reads: :func:`padded_layout` gives a
+column block only where the CPU's blocked f64 route runs, and the pair
+factor ``eri_chol`` is read only by :mod:`sqd_tpu_torch.ops.dense_df` and
+:mod:`sqd_tpu_torch.parallel.df_sharded`.
+
 The blocking thresholds below are ``sqd_tpu``'s, sized for a TPU's memory,
 and kept so that the port takes ``sqd_tpu``'s path for every shape on the
-CPU (the card's f64 kernel makes no dense intermediates to bound).
+CPU (the card's kernels make no dense intermediates to bound).
 """
 
 from __future__ import annotations
@@ -176,8 +181,8 @@ class SCIHamiltonian(SCIBasis):
     eri_t: torch.Tensor = None  # (npair, npair): eri_t[rs, pq] = (pq|rs)
     hdiag: torch.Tensor = None  # (M, N)
     # optional pivoted-Cholesky factor L (X, npair) of the PSD pair matrix
-    # V[pq, rs] = (pq|rs) = (L^T L)[pq, rs]: f32 contractions outside the
-    # kernel go through it; f64 always uses the exact eri_t
+    # V[pq, rs] = (pq|rs) = (L^T L)[pq, rs]: read only by ops/dense_df and
+    # parallel/df_sharded; every matvec here contracts the exact eri_t
     eri_chol: torch.Tensor | None = None
     spin_shift: float = 0.0  # penalty shift * (S^2 - spin_target); 0 disables
     spin_target: float = 0.0
@@ -202,22 +207,6 @@ class SCIHamiltonian(SCIBasis):
             eri_chol=None if self.eri_chol is None else self.eri_chol.to(dtype),
         )
         return _sharing_tables(out, self)
-
-    def _use_chol(self, dtype: torch.dtype) -> bool:
-        """The factored contraction is for f32 only."""
-        return self.eri_chol is not None and dtype == torch.float32
-
-    def _chol_left(self, flat: torch.Tensor) -> torch.Tensor:
-        """``V @ flat`` through the factor.  ``V`` is symmetric (the factor is
-        attached only to a symmetric PSD pair matrix), so this also serves
-        the ``eri_t.T @ flat`` of the blocked paths."""
-        lf = self.eri_chol.to(flat.dtype)
-        return lf.T @ (lf @ flat)
-
-    def _chol_right(self, flat: torch.Tensor) -> torch.Tensor:
-        """``flat @ V`` through the factor."""
-        lf = self.eri_chol.to(flat.dtype)
-        return (flat @ lf.T) @ lf
 
     def cross_spin_operands(self, dtype: torch.dtype = torch.float32
                             ) -> cross_spin.CrossSpinOperands:
@@ -310,16 +299,22 @@ class SCIHamiltonian(SCIBasis):
             with span("matvec.full"):
                 return self._matvec_full(c)
 
-    def _matvec_kernel(self, c: torch.Tensor) -> torch.Tensor:
-        """Cross-spin channel via the kernel of ``c``'s dtype
-        (:func:`cross_spin.cross_spin_matvec` in f32,
-        :func:`cross_spin.cross_spin_matvec_f64` in f64) + same-spin; the
-        penalty's mixed term rides in the operands' ``eri``."""
+    def apply_cross_spin(self, c: torch.Tensor) -> torch.Tensor:
+        """The cross-spin channel (with the penalty's mixed term) by the kernel
+        of ``c``'s dtype: :func:`cross_spin.cross_spin_matvec` in f32,
+        :func:`cross_spin.cross_spin_matvec_f64` in f64, each
+        :func:`cross_spin.cross_spin_plain` on a CPU tensor.  One output row
+        per column of the alpha tables, whose sources may index more rows of
+        ``c`` (a row shard's tables read the whole ``c``)."""
         ops = self.cross_spin_operands(c.dtype)
         if c.dtype == torch.float32:
-            sigma = cross_spin.cross_spin_matvec(c, ops)
-        else:  # the exact operator takes any layout, as the dense route did
-            sigma = cross_spin.cross_spin_matvec_f64(c.contiguous(), ops)
+            return cross_spin.cross_spin_matvec(c, ops)
+        # the exact operator takes any layout, as the dense route did
+        return cross_spin.cross_spin_matvec_f64(c.contiguous(), ops)
+
+    def _matvec_kernel(self, c: torch.Tensor) -> torch.Tensor:
+        """:meth:`apply_cross_spin` + same-spin + the penalty's diagonal."""
+        sigma = self.apply_cross_spin(c)
         with span("matvec.samespin"):
             sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
         if self.spin_shift != 0.0:
@@ -336,17 +331,14 @@ class SCIHamiltonian(SCIBasis):
 
     def _matvec_dense(self, c: torch.Tensor) -> torch.Tensor:
         """``sqd_tpu``'s unblocked route: every pair gathered into an
-        ``(npair, M, N)`` tensor, one matmul over the pair axis (through the
-        factor for f32 where one is attached), gathers back."""
+        ``(npair, M, N)`` tensor, one matmul over the pair axis, gathers
+        back."""
         m, n = c.shape
         npair = self.norb * self.norb
         d_a = self.gather_alpha(c)  # (npair, M, N)
         # cross-spin: sigma_ab = sum_rs E^b_rs [ sum_pq (pq|rs) E^a_pq c ]
         flat = d_a.reshape(npair, m * n)
-        if self._use_chol(c.dtype):
-            g = self._chol_left(flat).reshape(npair, m, n)
-        else:
-            g = (self.eri_t.to(c.dtype) @ flat).reshape(npair, m, n)
+        g = (self.eri_t.to(c.dtype) @ flat).reshape(npair, m, n)
         sigma = self.scatter_beta(g)
         del g
         sigma = sigma + self.apply_samespin_alpha(c) + self.apply_samespin_beta(c)
@@ -415,7 +407,7 @@ class SCIHamiltonian(SCIBasis):
             db = ct[self.src_b[:, cols]] * sign_b_f[:, cols, None]
             flat = db.reshape(npair, cb * m)
             del db
-            g2 = self._chol_left(flat) if self._use_chol(dt) else eri_m @ flat
+            g2 = eri_m @ flat
             del flat
             # (npair, m, cb), so that the alpha pick reads contiguous cb-runs
             g2 = g2.reshape(npair, cb, m).transpose(1, 2).contiguous()
@@ -460,7 +452,7 @@ class SCIHamiltonian(SCIBasis):
             d = sign_a_f[:, :, None] * c[:, cols][self.src_a]  # (npair, m, cb)
             d_t = d.permute(1, 2, 0)  # (m, cb, npair)
             flat = d_t.reshape(m * cb, npair)
-            g_blk = self._chol_right(flat) if self._use_chol(dt) else flat @ eri_m
+            g_blk = flat @ eri_m
             gt[:, cols] = g_blk.reshape(m, cb, npair)
             if with_penalty:
                 dat[:, cols] = d_t
@@ -498,10 +490,16 @@ def _sharing_tables(ham: SCIHamiltonian, source: SCIHamiltonian) -> SCIHamiltoni
     return ham
 
 
+def _kernel_routes(device) -> bool:
+    """Whether operators on ``device`` apply through the cross-spin kernels in
+    every dtype (a CUDA device), so that no dense route runs there."""
+    return torch.device(device).type == "cuda"
+
+
 def _f64_kernel_takes(c: torch.Tensor) -> bool:
     """Whether the exact operator applies to ``c`` through the f64 kernel:
-    f64 amplitudes on a CUDA device."""
-    return c.dtype == torch.float64 and c.device.type == "cuda"
+    f64 amplitudes on a device where the kernels route."""
+    return c.dtype == torch.float64 and _kernel_routes(c.device)
 
 
 def sci_matvec_flat(ham: SCIHamiltonian, x: torch.Tensor) -> torch.Tensor:
@@ -625,6 +623,28 @@ def _auto_col_block(npair: int, m_pad: int, n_pad: int) -> int:
     if npair * m_pad * cb > COL_BLOCK_CAP_ELEMS:
         cb = max(8, (COL_BLOCK_CAP_ELEMS // (npair * m_pad) // 8) * 8)
     return cb if cb < n_pad else 0
+
+
+def padded_layout(npair: int, m: int, n: int, pad_to, col_block, device
+                  ) -> tuple[int, int, int]:
+    """``(m_pad, n_pad, col_block)`` of an operator over ``m x n`` strings on
+    ``device``, from ``pad_to`` (``None``: ``(m, n)``).  ``"auto"`` aligns
+    rows to 8 and columns to 128 past 32 M ``npair * m_pad * n_pad`` elements
+    and takes :func:`_auto_col_block` only where the kernels do not route
+    (:func:`_kernel_routes`), else no block; an int is taken as given.
+    ``n_pad`` is a multiple of the block."""
+    m_pad, n_pad = pad_to if pad_to is not None else (m, n)
+    if m_pad < m or n_pad < n:
+        raise ValueError(f"pad_to {pad_to} smaller than subspace ({m}, {n})")
+    if col_block == "auto":
+        col_block = 0 if _kernel_routes(device) else _auto_col_block(npair, m_pad, n_pad)
+        if npair * m_pad * n_pad > 32 * 1024 * 1024:
+            m_pad = -(-m_pad // 8) * 8
+            n_pad = -(-n_pad // 128) * 128
+    col_block = int(col_block)
+    if col_block:
+        n_pad = -(-n_pad // col_block) * col_block
+    return m_pad, n_pad, col_block
 
 
 def _check_weights(strs_a_packed, strs_b_packed, nelec) -> None:
@@ -874,14 +894,14 @@ def build_sci_hamiltonian(
     (:func:`linktab.build_gather_tables`, :func:`build_samespin_tables`; its
     same-spin values computed in ``dtype``, its lists keeping valid zero
     values, and ``table_cache`` ignored); any other value raises
-    ``ValueError``.  All backends share the rest: the same padding
-    (``pad_to``; clamped tables extended with zero weights, padded diagonal
-    entries at 1e30), the same ``col_block`` (``"auto"``:
-    :func:`_auto_col_block` and the alignment rule; an int: that block, 0 for
-    none; ``N`` is padded to a multiple of it) and the same ``eri_factor``
+    ``ValueError``.  All backends share the rest: the same padding and
+    ``col_block`` (:func:`padded_layout`; clamped tables extended with zero
+    weights, padded diagonal entries at 1e30; under ``"auto"`` no block on a
+    CUDA device) and the same ``eri_factor``
     (``"auto"``: :func:`pivoted_cholesky_pairs` with rank at most
     ``npair // 3`` when ``npair > 256``, kept if it succeeds; ``None``: no
-    factor; an ``(X, npair)`` array: used as given).  The f64 diagonal is
+    factor; an ``(X, npair)`` array: used as given; only the dense
+    density-fitted routes read it).  The f64 diagonal is
     computed on the host, or from ``DEVICE_DIAG_MIN_ELEMS`` padded
     determinants on, assembled on ``device`` from its rank-structured parts.
     A ``table_cache`` (:class:`sqd_tpu_torch.ops.table_cache.TableCache`)
@@ -894,17 +914,7 @@ def build_sci_hamiltonian(
         n_a, n_b = (int(x) for x in nelec)
         _check_weights(strs_a_packed, strs_b_packed, (n_a, n_b))
         npair = norb * norb
-        m_pad, n_pad = pad_to if pad_to is not None else (m, n)
-        if m_pad < m or n_pad < n:
-            raise ValueError(f"pad_to {pad_to} smaller than subspace ({m}, {n})")
-        if col_block == "auto":
-            col_block = _auto_col_block(npair, m_pad, n_pad)
-            if npair * m_pad * n_pad > 32 * 1024 * 1024:
-                m_pad = -(-m_pad // 8) * 8
-                n_pad = -(-n_pad // 128) * 128
-        col_block = int(col_block)
-        if col_block:
-            n_pad = -(-n_pad // col_block) * col_block
+        m_pad, n_pad, col_block = padded_layout(npair, m, n, pad_to, col_block, device)
         pad_m, pad_n = m_pad - m, n_pad - n
 
         h1_np = np.asarray(h1e, np.float64)

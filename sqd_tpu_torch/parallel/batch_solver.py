@@ -112,7 +112,7 @@ def solve_sci_batch_sharded(
             pa, pb, one_body_tensor, two_body_tensor, norb, nelec, device=device,
             spin_shift=0.0 if spin_sq is None else float(shift),
             spin_target=0.0 if spin_sq is None else float(spin_sq),
-            dtype=torch.float64, pad_to=(m_pad, n_pad),
+            dtype=torch.float64, pad_to=(m_pad, n_pad), eri_factor=None,
         )
         energy, vec, occ_a, occ_b = _solve_one(
             ham64.astype(solver_dtype), ham64, tol, max_subspace, max_cycle)

@@ -83,7 +83,7 @@ def _grid_shard(ham64, rows, cols, row, col, dtype, bare=False) -> _GridShard:
         ham64, src_a=ham64.src_a[:, rows], sign_a=ham64.sign_a[:, rows],
         nbr_idx_a=ham64.nbr_idx_a[rows], nbr_val_a=ham64.nbr_val_a[rows],
         nbr_idx_b=ham64.nbr_idx_b[cols], nbr_val_b=ham64.nbr_val_b[cols],
-        hdiag=ham64.hdiag[rows, cols], eri_chol=None, col_block=0,
+        hdiag=ham64.hdiag[rows, cols],
         **({"spin_shift": 0.0, "spin_target": 0.0} if bare else {}),
     ).astype(dtype)
     loc = ham64.src_b - cols.start
@@ -174,7 +174,7 @@ def solve_sci_gridsharded(
         pa, pb, one_body_tensor, two_body_tensor, norb, nelec, device=device,
         spin_shift=float(shift) if with_spin else 0.0,
         spin_target=float(spin_sq) if with_spin else 0.0,
-        dtype=torch.float64, pad_to=(m_pad, n_pad), col_block=0,
+        dtype=torch.float64, pad_to=(m_pad, n_pad), col_block=0, eri_factor=None,
     )
     mr, ncl = ham64.shape[0] // row.size, ham64.shape[1] // col.size
     rows = slice(row.rank * mr, (row.rank + 1) * mr)

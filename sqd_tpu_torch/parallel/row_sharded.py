@@ -11,15 +11,15 @@ all-gather of the direction (``M * N`` values):
 
 * cross-spin: the local output rows' alpha gathers read GLOBAL source rows
   of the gathered direction; the pair contraction and the beta picks are
-  then row-local.  In f32 this is the cross-spin CUDA kernel on operands
-  restricted to the local rows (:func:`~sqd_tpu_torch.ops.cross_spin.prepare`
-  on the local columns of the alpha tables: the kernel's output rows are
-  this rank's, its alpha sources index the gathered ``(M, N)`` direction).
-  ``sqd_tpu``'s einsum form would hold ``(npair, M / size, N)``
-  intermediates, which XLA fuses and PyTorch does not: 2 x 20 GB in f32 for
-  the N2/6-31G CASCI on one rank.  The f64 refinement and energy run the
-  same contraction as torch ops, in row chunks of at most
-  ``cross_spin.PLAIN_CHUNK_BYTES`` per intermediate;
+  then row-local.  This is the cross-spin CUDA kernel of the direction's
+  dtype (``SCIHamiltonian.apply_cross_spin``: f32 in the solve, f64 in the
+  refinement and the energy) on operands restricted to the local rows
+  (:func:`~sqd_tpu_torch.ops.cross_spin.prepare` on the local columns of
+  the alpha tables: the kernel's output rows are this rank's, its alpha
+  sources index the gathered ``(M, N)`` direction).  ``sqd_tpu``'s einsum
+  form would hold ``(npair, M / size, N)`` intermediates, which XLA fuses
+  and PyTorch does not: 2 x 20 GB in f32 for the N2/6-31G CASCI on one
+  rank;
 * same-spin alpha: local output rows, global neighbour rows; same-spin beta
   is row-local;
 * the spin penalty's mixed term rides through the ERI matrix
@@ -37,7 +37,6 @@ import math
 import torch
 
 from ..fermion import _check_ci_strs, _result_of, _strings_to_packed
-from ..ops import cross_spin
 from ..ops.davidson import davidson_ground_state, davidson_initial_guess_sharded
 from ..ops.hamiltonian import SCIHamiltonian, build_sci_hamiltonian
 from ..ops.precision import highest_precision
@@ -54,10 +53,9 @@ class _RowShard:
     """This rank's rows of one operator: ``ham`` holds the alpha gather tables,
     same-spin alpha lists and diagonal of the local rows (sources and
     neighbours index all ``M`` rows), every beta table, and the ERI matrix,
-    in one dtype; ``eri`` is the penalty-folded ERI matrix (f64 only)."""
+    in one dtype."""
 
     ham: SCIHamiltonian
-    eri: torch.Tensor | None
     axis: MeshAxis
 
 
@@ -66,31 +64,10 @@ def _row_shard(ham64: SCIHamiltonian, rows: slice, axis: MeshAxis, dtype,
     local = dataclasses.replace(
         ham64, src_a=ham64.src_a[:, rows], sign_a=ham64.sign_a[:, rows],
         nbr_idx_a=ham64.nbr_idx_a[rows], nbr_val_a=ham64.nbr_val_a[rows],
-        hdiag=ham64.hdiag[rows], eri_chol=None, col_block=0,
+        hdiag=ham64.hdiag[rows],
         **({"spin_shift": 0.0, "spin_target": 0.0} if bare else {}),
     ).astype(dtype)
-    eri = None if dtype == torch.float32 else local.penalty_folded_eri(dtype)
-    return _RowShard(local, eri, axis)
-
-
-def _cross_spin_rows(c_full: torch.Tensor, ham: SCIHamiltonian, eri: torch.Tensor):
-    """``sum_rs E^b_rs [eri @ E^a c]`` for ``ham``'s rows, in ``c_full``'s dtype:
-    the kernel's plain arithmetic, in row chunks whose ``(npair, rows, N)``
-    intermediates stay within ``cross_spin.PLAIN_CHUNK_BYTES``."""
-    npair, m_loc = ham.src_a.shape
-    n = c_full.shape[1]
-    dt = c_full.dtype
-    step = max(1, min(m_loc, cross_spin.PLAIN_CHUNK_BYTES // (npair * n * c_full.element_size())))
-    out = c_full.new_empty((m_loc, n))
-    for i0 in range(0, m_loc, step):
-        rows = slice(i0, i0 + step)
-        d = ham.sign_a[:, rows, None].to(dt) * c_full[ham.src_a[:, rows]]  # (npair, r, N)
-        g = (eri @ d.reshape(npair, -1)).reshape(d.shape)
-        del d
-        picked = torch.gather(g, 2, ham.src_b[:, None, :].expand(g.shape))
-        del g
-        out[rows] = (ham.sign_b.to(dt)[:, None, :] * picked).sum(dim=0)
-    return out
+    return _RowShard(local, axis)
 
 
 def _rowsharded_matvec(op: _RowShard, x: torch.Tensor) -> torch.Tensor:
@@ -99,10 +76,7 @@ def _rowsharded_matvec(op: _RowShard, x: torch.Tensor) -> torch.Tensor:
     c_loc = x.reshape(ham.hdiag.shape)
     c_full = op.axis.all_gather(c_loc)  # the one collective: (M, N)
     with highest_precision():
-        if c_loc.dtype == torch.float32:
-            sigma = cross_spin.cross_spin_matvec(c_full, ham.cross_spin_operands())
-        else:
-            sigma = _cross_spin_rows(c_full, ham, op.eri)
+        sigma = ham.apply_cross_spin(c_full)
         sigma += ham.apply_samespin_alpha(c_full)
         sigma += ham.apply_samespin_beta(c_loc)
         if ham.spin_shift != 0.0:
@@ -159,7 +133,7 @@ def solve_sci_rowsharded(
         pa, pb, one_body_tensor, two_body_tensor, norb, nelec, device=device,
         spin_shift=float(shift) if with_spin else 0.0,
         spin_target=float(spin_sq) if with_spin else 0.0,
-        dtype=torch.float64, pad_to=(m_pad, len(strs_b)), col_block=0,
+        dtype=torch.float64, pad_to=(m_pad, len(strs_b)), col_block=0, eri_factor=None,
     )
     m_loc = ham64.shape[0] // axis.size
     rows = slice(axis.rank * m_loc, (axis.rank + 1) * m_loc)

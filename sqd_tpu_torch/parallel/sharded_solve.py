@@ -123,7 +123,8 @@ def solve_sci_distributed(
     if npair % axis.size:
         raise ValueError(f"norb^2 = {npair} must divide evenly over {axis.size} ranks.")
     ham64 = build_sci_hamiltonian(pa, pb, one_body_tensor, two_body_tensor, norb, nelec,
-                                  device=device, dtype=torch.float64, col_block=0)
+                                  device=device, dtype=torch.float64, col_block=0,
+                                  eri_factor=None)
     steered = ham64
     if spin_sq is not None:
         steered = dataclasses.replace(ham64, spin_shift=float(shift), spin_target=float(spin_sq))

@@ -5,8 +5,9 @@ Every test here needs an NVIDIA card and skips without one.  On the card the
 f64 route of ``SCIHamiltonian.matvec`` (the f64 kernel, the same-spin
 gathers, the penalty's diagonal) is held against the dense f64 route that the
 CPU takes (``_matvec_dense``, or ``_matvec_blocked`` for a column-blocked
-operator) at the headline (1024 x 1024, npair 256), the cc-pVDZ batch (npair
-784), config 5 (3168 x 3200, npair 1296, two-word strings) and the CASCI
+operator; the operators carry the CPU's column block, given explicitly,
+since ``"auto"`` gives none on the card) at the headline (1024 x 1024,
+npair 256), the cc-pVDZ batch (npair 784), config 5 (3168 x 3200, npair 1296, two-word strings) and the CASCI
 (4384 x 4480), within ``1e-12 * max(|dense|, 1)``; the kernel's launches are
 counted per exact application, apart from the f32 kernel's; and one f64
 application launches no GEMM of its own.  The file imports no JAX, so it
@@ -27,7 +28,7 @@ from bench_torch import config5_problem, excitation_strings
 from sqd_tpu_torch import fermion
 from sqd_tpu_torch.models.fcidump import read_fcidump
 from sqd_tpu_torch.ops import bitpack, cross_spin
-from sqd_tpu_torch.ops.hamiltonian import SCIHamiltonian, build_sci_hamiltonian
+from sqd_tpu_torch.ops.hamiltonian import SCIHamiltonian, build_sci_hamiltonian, padded_layout
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "sqd_tpu_torch", "data")
@@ -47,7 +48,9 @@ def _fcidump(name):
 
 
 def _operator(name, device, **kwargs):
-    """The f64 operator of one shape, as ``solve_sci`` builds it."""
+    """The f64 operator of one shape, as ``solve_sci`` builds it on the CPU:
+    the CPU's shape and column block, so that its dense reference fits on the
+    card (config 5's unblocked one would take ~105 GB)."""
     if name in ("headline", "casci"):
         h1, eri = _fcidump("n2_631g_cas16o_5a5b.fcidump")
         norb, nelec = 16, (5, 5)
@@ -67,9 +70,11 @@ def _operator(name, device, **kwargs):
         sb = sa
         norb, nelec = 36, (27, 27)
         pad_to = (-(-len(sa) // 32) * 32,) * 2
+    m_pad, n_pad, col_block = padded_layout(norb * norb, len(sa), len(sb), pad_to, "auto",
+                                            torch.device("cpu"))
     return build_sci_hamiltonian(
         bitpack.pack_ints(sa, norb), bitpack.pack_ints(sb, norb), h1, eri, norb, nelec,
-        device=device, pad_to=pad_to, eri_factor=None, **kwargs)
+        device=device, pad_to=(m_pad, n_pad), col_block=col_block, eri_factor=None, **kwargs)
 
 
 def _dense(ham, c):

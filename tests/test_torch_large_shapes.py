@@ -2,15 +2,18 @@
 """The port's large-shape paths against ``sqd_tpu`` on the CPU.
 
 The column-blocked f64 and f32 matvecs (both variants, forced by their
-mangled names), the pivoted-Cholesky pair factor and the factored f32
-matvec, the diagonal assembled on the device, the ``"sparse"`` same-spin
-tables and ``solve_sci`` where ``eri_factor="auto"`` factors.  Tolerances:
+mangled names), the pivoted-Cholesky pair factor (and the f32 matvecs,
+which contract the exact integrals, against ``sqd_tpu``'s factored ones),
+the padding and column block by device, the pair factor computed only for
+the routes that read it, the diagonal assembled on the device, the
+``"sparse"`` same-spin tables and ``solve_sci`` where ``eri_factor="auto"``
+factors.  Tolerances:
 f64 matvecs ``1e-12 * max(|ref|, 1)``; f32 matvecs ``1e-5 * max(|ref|, 1)``;
 the factor and the diagonal ``1e-12``; tables bit for bit; energies
 ``1e-9`` Ha.
 """
 
-import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -114,13 +117,14 @@ def test_blocked_variants_match(strings, variant, spin, dtype):
 
 @pytest.mark.parametrize("variant", VARIANTS, ids=["two_pass", "beta_first"])
 def test_blocked_variants_through_factor_match(variant):
-    """f32 blocked variants contract through an attached factor, as in ``sqd_tpu``."""
+    """f32 blocked variants contract the exact integrals, ``sqd_tpu``'s the
+    attached factor: the same operator."""
     norb, nelec = 8, (3, 3)
     h1, eri = _psd_integrals(norb, 10, seed=3)
     strs = (_strings(norb, 3, 20, 1), _strings(norb, 3, 17, 2))
     factor = jax_ham.pivoted_cholesky_pairs(eri, norb)
     ham_j, ham_t = _pair(norb, nelec, strs, h1, eri, col_block=8, eri_factor=factor)
-    assert ham_t.eri_chol is not None and ham_t._use_chol(torch.float32)
+    assert ham_t.eri_chol is not None
     ham_j, ham_t = ham_j.astype(jnp.float32), ham_t.astype(torch.float32)
     c = _amplitudes(ham_j.shape, *map(len, strs)).astype(np.float32)
     ref = getattr(ham_j, variant)(jnp.asarray(c))
@@ -171,7 +175,9 @@ def test_pivoted_cholesky_pairs_matches(case):
     np.testing.assert_allclose(out.T @ out, v, rtol=0, atol=1e-12)
 
 
-def test_factored_f32_matvec_full_matches():
+def test_f32_matvec_full_matches():
+    """The f32 ``_matvec_full`` (exact integrals) against ``sqd_tpu``'s,
+    which contracts the attached factor, and against the kernel route."""
     norb, nelec = 10, (4, 3)
     h1, eri = _psd_integrals(norb, 12, seed=6)
     strs = (_strings(norb, 4, 24, 3), _strings(norb, 3, 19, 4))
@@ -183,9 +189,6 @@ def test_factored_f32_matvec_full_matches():
     ref = ham_j._matvec_full(jnp.asarray(c))
     out = ham_t._matvec_full(torch.as_tensor(c))
     _close(out, ref, 1e-5)
-    # and the factored route agrees with the exact one and the kernel route
-    exact = dataclasses.replace(ham_t, eri_chol=None)
-    _close(out, exact._matvec_full(torch.as_tensor(c)), 1e-5)
     _close(out, ham_t.matvec(torch.as_tensor(c)), 1e-5)
 
 
@@ -206,6 +209,78 @@ def test_auto_factor_matches_at_npair_above_256():
     with pytest.raises(ValueError, match="eri_factor"):
         port_ham.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device="cpu",
                                        eri_factor=np.zeros((3, 5)))
+
+
+# Each benchmark cell's operator: (npair, strings per spin, solve_sci's
+# pad_to), and its layout (m_pad, n_pad, col_block) on the CPU, which is
+# sqd_tpu's, and on a CUDA device, where no route reads a column block.
+CELL_LAYOUTS = {
+    "n2_631g.sqd_loop": ((256, 950, 950, (960, 960)), (960, 1024, 0), (960, 1024, 0)),
+    "n2_631g.solve_1e6": ((256, 1000, 1000, (1024, 1024)), (1024, 1024, 0), (1024, 1024, 0)),
+    "n2_631g.casci": ((256, 4368, 4368, (4384, 4384)), (4384, 4480, 128), (4384, 4480, 0)),
+    "n2_ccpvdz.solve_1e6": ((676, 1000, 1000, (1024, 1024)), (1024, 1024, 128),
+                            (1024, 1024, 0)),
+    "fe4s4_class.solve_1e6": ((1296, 1000, 1000, (1024, 1024)), (1024, 1120, 112),
+                              (1024, 1024, 0)),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("cell", sorted(CELL_LAYOUTS))
+def test_padded_layout_by_device(cell, device):
+    """``padded_layout`` is pure: a CUDA device needs no card.  On the CPU
+    the block is ``sqd_tpu``'s ``_auto_col_block``; on a CUDA device none,
+    with the 8/128 alignment kept; an explicit block is kept on both."""
+    (npair, m, n, pad_to), cpu, cuda = CELL_LAYOUTS[cell]
+    assert jax_ham._auto_col_block(npair, *pad_to) == cpu[2]
+    got = port_ham.padded_layout(npair, m, n, pad_to, "auto", torch.device(device))
+    assert got == (cpu if device == "cpu" else cuda)
+    assert port_ham.padded_layout(npair, m, n, pad_to, 128, torch.device(device)) == (
+        pad_to[0], -(-pad_to[1] // 128) * 128, 128)
+
+
+def _counted_factors(monkeypatch):
+    calls = []
+    factor = port_ham.pivoted_cholesky_pairs
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return factor(*args, **kwargs)
+
+    monkeypatch.setattr(port_ham, "pivoted_cholesky_pairs", counted)
+    return calls
+
+
+def _solvers():
+    from sqd_tpu_torch import parallel
+
+    f64 = {"solver_dtype": torch.float64, "device": "cpu"}
+    return {
+        "solve_sci_gather": (partial(fermion.solve_sci, **f64), 0),
+        "solve_sci_dense_df": (partial(fermion.solve_sci, matvec_strategy="dense_df", **f64), 1),
+        "solve_sci_excited": (partial(fermion.solve_sci_excited, k=2, device="cpu"), 0),
+        "batch_sharded": (lambda s, *a: parallel.solve_sci_batch_sharded([s], *a, **f64), 0),
+        "distributed": (partial(parallel.solve_sci_distributed, **f64), 0),
+        "rowsharded": (partial(parallel.solve_sci_rowsharded, **f64), 0),
+        "gridsharded": (partial(parallel.solve_sci_gridsharded, **f64), 0),
+        "dfsharded": (partial(parallel.solve_sci_dfsharded, **f64), 1),
+    }
+
+
+@pytest.mark.parametrize("solver", ["solve_sci_gather", "solve_sci_dense_df", "solve_sci_excited",
+                                    "batch_sharded", "distributed", "rowsharded",
+                                    "gridsharded", "dfsharded"])
+def test_pair_factor_only_for_its_readers(solver, monkeypatch):
+    """At npair 324 > 256, where ``"auto"`` factors, the pair factor is
+    computed once by the dense density-fitted solvers and never by the
+    gather route's."""
+    norb, nelec = 18, (2, 2)
+    h1, eri = _psd_integrals(norb, 30, seed=8)
+    strs = (_strings(norb, 2, 8, 5), _strings(norb, 2, 7, 6))
+    solve, want = _solvers()[solver]
+    calls = _counted_factors(monkeypatch)
+    solve(strs, h1, eri, norb, nelec)
+    assert len(calls) == want
 
 
 @pytest.mark.parametrize("pad_to", [None, (16, 21)], ids=["unpadded", "padded"])

@@ -39,8 +39,8 @@ Phases, each printing one line; any failure exits non-zero:
    the 34 TFLOP/s f64 rate or its bytes at the HBM rate) and the plain
    version's, and one f64 matvec by each route;
 3b. table kernels vs the native build — ``card_tables.build_tables`` (the
-   gather and both same-spin kernels, what ``"auto"`` takes on the card
-   without a usable ``TableCache``) at the headline (16 orbitals, 1000 x
+   gather and both same-spin kernels, what ``"auto"`` takes on the card,
+   a ``TableCache`` given or not) at the headline (16 orbitals, 1000 x
    1000 strings), the cc-pVDZ cell's (10e,26o) and phase 8's (14e,28o)
    shapes (1000 x 1000 strings), the CASCI (4368 strings a spin), config 5
    (3163 two-word strings, 36 orbitals) and all C(17,5) = 6188 strings over
@@ -51,9 +51,9 @@ Phases, each printing one line; any failure exits non-zero:
    native build's seconds (the plain version) and the kernels' bound (their
    least bytes, inputs read and tables written once, at the HBM rate).
    From phase 5 on, ``build_tables.launches`` and ``gather_tables.launches``
-   are recorded by phase: one build in phase 5's solve, none in phase 6's
-   loop solves (their ``TableCache``), one in every batch solve of phase 8
-   (the cache declines 4558 candidates a string), some in phase 7's CASCI;
+   are recorded by phase: one build in phase 5's solve, one in every batch
+   solve of phases 6 and 8 (the card builds them whatever ``TableCache`` the
+   loop holds), some in phase 7's CASCI;
 4. Davidson — the f32 solver on the headline operator (``bench.py``'s
    settings: tol 1e-3, max_subspace 24, 200 iterations) must converge;
 5. slice — ``sqd_tpu_torch.fermion.solve_sci`` on the bench headline problem
@@ -67,14 +67,14 @@ Phases, each printing one line; any failure exits non-zero:
 6. SQD loop — ``sqd_tpu_torch.fermion.diagonalize_fermionic_hamiltonian`` on
    the same integrals with 200,000 shots (:func:`loop_shots`) and
    ``LOOP_SETTINGS`` (3 iterations of 3 batches of ~950 x 950 strings, the
-   default solver with a fresh ``TableCache``).  Iteration 0 must give the
-   strings and, within 1e-7 Ha, the energies that ``sqd_tpu`` recorded
+   default solver).  Iteration 0 must give the strings and, within 1e-7 Ha,
+   the energies that ``sqd_tpu`` recorded
    (``tools/make_sqd_loop_data.py``); the best energy must lie within
    1e-7 Ha of a host-f64 Rayleigh quotient of its amplitudes; every batch
    solve must run in f32 (above 200k determinants) and launch the kernel,
    and its f64 refinement the f64 kernel and no blocked f64 matvec;
-   the table cache must have reused rows.  Prints each iteration's seconds
-   in recovery, subsampling, table builds and solves;
+   every batch solve must have built its tables on the card.  Prints each
+   iteration's seconds in recovery, subsampling, table builds and solves;
 7. CASCI — ``solve_sci`` with its defaults on all C(16,5) = 4368 strings per
    spin of the same problem (19,079,424 determinants, padded to 4384 x 4480,
    ``col_block`` 128): first the kernel against its plain version, and
@@ -884,9 +884,7 @@ def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solv
 
     from sqd_tpu_torch import fermion
     from sqd_tpu_torch.ops import cross_spin
-    from sqd_tpu_torch.ops.table_cache import TableCache
 
-    cache = TableCache()
     with Probe() as probe:
         probe.loop_steps()
         if stages:
@@ -897,13 +895,12 @@ def run_loop(dev, smi, label, h1, eri, ecore, norb, nelec, shots, settings, solv
         t0 = time.perf_counter()
         best = fermion.diagonalize_fermionic_hamiltonian(
             h1, eri, shots, norb=norb, nelec=nelec, callback=probe.callback,
-            solver_options={"table_cache": cache, **solver_options}, device=dev, **settings,
+            solver_options=solver_options, device=dev, **settings,
         )
         sync()
         t_loop = time.perf_counter() - t0
         launches = cross_spin.cross_spin_matvec.launches
     probe.spans.pop()  # opened after the last iteration
-    probe.cache = cache
     for i, (results, span) in enumerate(zip(probe.history, probe.spans)):
         steps = ", ".join(f"{k} {span[k]:.4f} s" for k in STEPS + SOLVE_STAGES if k in span)
         print(f"{label} iteration {i}: {steps}; subspaces "
@@ -958,19 +955,16 @@ def sqd_loop_phase(dev, smi, h1, eri, ecore):
     vec[: state.amplitudes.shape[0], : state.amplitudes.shape[1]] = state.amplitudes
     e_host = host_f64_energy(ham, vec)
     occ_a, occ_b = best.orbital_occupancies
-    strings_solved = sum(s["shape"][0] + s["shape"][1] for s in probe.solves)
     print(f"sqd loop: |E - host f64| {abs(best.energy - e_host):.3e}; iteration 0 vs sqd_tpu: "
-          f"max |dE| {it0_diff:.3e}; table cache: {probe.cache.native_rows_computed} native "
-          f"rows for {strings_solved} strings solved (a direct build computes "
-          f"{2 * strings_solved})", flush=True)
+          f"max |dE| {it0_diff:.3e}; card table builds per solve "
+          f"{[s['card_builds'] for s in probe.solves]}", flush=True)
     checks.update({
         "iteration 0 energies within 1e-7 Ha of sqd_tpu's": it0_diff < TOL_ENERGY,
         "best energy vs host f64": abs(best.energy - e_host) < TOL_ENERGY,
         "best occupancies sum to (5, 5)": abs(occ_a.sum() - 5) < 1e-8
         and abs(occ_b.sum() - 5) < 1e-8,
-        "the table cache reused rows": probe.cache.native_rows_computed < strings_solved,
-        "no card table build (the table cache serves every solve)": all(
-            s["card_builds"] == 0 for s in probe.solves),
+        "every batch solve built its tables on the card": all(
+            s["card_builds"] == 1 for s in probe.solves),
         "every batch f64 refinement ran the f64 kernel, no blocked matvec": all(
             s["f64_launches"] > 0 and not s["variants"] for s in probe.solves),
     })

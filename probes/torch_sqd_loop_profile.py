@@ -99,10 +99,11 @@ def table_build(pa, pb, h1, eri, tables, spans, dev):
     steps.update({f"of which {k}": v for k, v in spans.seconds.items()})
     cache = tables if isinstance(tables, table_cache.TableCache) else None
     pad = tuple(-(-len(p) // 32) * 32 for p in (pa, pb))
-    # the whole build once more (its tables are now cached where a cache is
-    # used, so a cached build is timed twice over): padding and upload
+    # the whole host build once more (its tables are now cached where a cache
+    # is used, so a cached build is timed twice over): padding and upload
     _, whole = timed(lambda: ham_ops.build_sci_hamiltonian(
-        pa, pb, h1, eri, NORB, NELEC, device=dev, pad_to=pad, table_cache=cache))
+        pa, pb, h1, eri, NORB, NELEC, device=dev, pad_to=pad, table_cache=cache,
+        tables_backend="native"))
     steps["whole build"] = whole
     return steps
 

@@ -309,8 +309,9 @@ def solve_sci(
             f64 matvec over all ``norb**2`` pairs, so consider
             ``refine_iterations=0`` there at very large ``norb``.
         table_cache: an :class:`~sqd_tpu_torch.ops.table_cache.TableCache`
-            reused across solves on the same integrals (same tables, less
-            host work).
+            reused across solves on the same integrals where the tables are
+            built on the host (the CPU; same tables, less host work); on a
+            CUDA device the card builds them and the cache is not read.
         eri_factor: the pair factor, read only by ``"dense_df"``, which
             forwards it to :func:`build_sci_hamiltonian` (``"auto"``: a
             pivoted-Cholesky factor when ``norb**2 > 256`` and the integrals
@@ -653,7 +654,10 @@ def diagonalize_fermionic_hamiltonian(
         max_iterations: recovery-iteration limit.
         sci_solver: batch solver ``(ci_strings, h1, h2, norb, nelec) ->
             list[SCIResult]``; defaults to :func:`solve_sci_batch` on
-            ``device`` with a fresh :class:`TableCache`.
+            ``device`` with a fresh :class:`TableCache`, which the host
+            table route draws on (the CPU); on a CUDA device the card
+            builds every batch's tables instead
+            (:func:`~sqd_tpu_torch.ops.hamiltonian._tables_route`).
         symmetrize_spin: merge alpha/beta string sets each iteration
             (requires ``n_alpha == n_beta``).
         max_dim: per-spin subspace dimension cap (int or (a, b) pair).
@@ -725,8 +729,9 @@ def diagonalize_fermionic_hamiltonian(
     if sci_solver is None:
         opts = dict(solver_options or {})
         if "table_cache" not in opts:
-            # reuse the set-independent per-string table halves across
-            # iterations (string sets overlap heavily through carryover)
+            # where the host builds the tables, reuse the set-independent
+            # per-string halves across iterations (string sets overlap
+            # heavily through carryover); the card's route reads no cache
             opts["table_cache"] = TableCache()
 
         def sci_solver(cs, h1, h2, no, ne):

@@ -21,11 +21,12 @@ Cartesian product, the projected Hamiltonian splits exactly into
 
 The tables come from the native host build (``tables_backend="native"``, and
 ``"auto"`` on the CPU), from its CUDA port on the card (``"auto"`` on a CUDA
-device: :mod:`sqd_tpu_torch.ops.card_tables`, the same tables bit for bit),
-from a :class:`sqd_tpu_torch.ops.table_cache.TableCache` where one is given
-(the same tables again), or are built on the device from the packed strings
-as torch ops (``"device"``: :func:`sqd_tpu_torch.ops.linktab.build_gather_tables`
-and :func:`build_samespin_tables`).
+device, a cache given or not: :mod:`sqd_tpu_torch.ops.card_tables`, the same
+tables bit for bit), from a :class:`sqd_tpu_torch.ops.table_cache.TableCache`
+where one is given to a host route (the same tables again), or are built on
+the device from the packed strings as torch ops (``"device"``:
+:func:`sqd_tpu_torch.ops.linktab.build_gather_tables` and
+:func:`build_samespin_tables`).
 
 The optional spin penalty ``shift * (S^2 - target)`` is exact in the product
 basis too.  Padded determinants have zero couplings and a 1e30 diagonal, so
@@ -804,21 +805,29 @@ def build_samespin_tables(strs_packed, h1e, eri, norb: int, nelec_spin: int, *,
     return idx, val
 
 
-def _tables_route(device, table_cache, strs_packed, norb: int, nelec) -> str:
-    """Where ``tables_backend="auto"`` builds an operator's tables: ``"cache"``
-    where a usable ``table_cache`` is given (packed width <= 2 words and at
-    most 4096 same-spin candidates a string on both spins, as ``sqd_tpu``
-    uses it), else ``"card"`` on a CUDA device whose kernels take the
-    strings (:func:`card_tables.takes`), else ``"native"``, the host build.
-    ``strs_packed`` is either spin's packed matrix (both have one width)."""
+def _tables_route(device, table_cache, strs_packed, norb: int, nelec,
+                  tables_backend: str = "auto") -> str:
+    """Where ``tables_backend`` builds an operator's tables: ``"card"``,
+    ``"cache"``, ``"native"`` (the host build) or ``"device"`` (torch ops).
+    ``"auto"`` takes the card on a CUDA device whose kernels take the
+    strings (:func:`card_tables.takes`), with or without a cache; elsewhere
+    it and ``"native"`` take ``"cache"`` where a usable ``table_cache`` is
+    given (packed width <= 2 words and at most 4096 same-spin candidates a
+    string on both spins, as ``sqd_tpu`` uses it), else ``"native"``; any
+    other backend takes ``"device"``.  The tables are the same on every
+    route.  ``strs_packed`` is either spin's packed matrix (both have one
+    width)."""
+    if tables_backend not in ("auto", "native"):
+        return "device"
     strs_packed = np.asarray(strs_packed)
+    if (tables_backend == "auto" and torch.device(device).type == "cuda"
+            and card_tables.takes(strs_packed)):
+        return "card"
     # the cache stores per-string rows at the full candidate width: at high
     # filling that width explodes and the direct build is the cheaper one
     if (table_cache is not None and table_cache.usable(strs_packed)
             and max(native.samespin_width(norb, int(ne)) for ne in nelec) <= 4096):
         return "cache"
-    if torch.device(device).type == "cuda" and card_tables.takes(strs_packed):
-        return "card"
     return "native"
 
 
@@ -843,10 +852,11 @@ def build_sci_basis(
     """
     tables = []
     for strs in (strs_a_packed, strs_b_packed):
-        if tables_backend == "auto" and _tables_route(device, None, strs, norb, nelec) == "card":
+        route = _tables_route(device, None, strs, norb, nelec, tables_backend)
+        if route == "card":
             tables += card_tables.gather_tables(strs, norb, device=device)
             continue
-        if tables_backend in ("auto", "native"):
+        if route == "native":
             src, sign = native.gather_tables(np.asarray(strs), norb)
             src = torch.as_tensor(src, dtype=torch.int64, device=device)
             sign = torch.as_tensor(sign, device=device)
@@ -885,11 +895,12 @@ def build_sci_hamiltonian(
     """Assemble the projected Hamiltonian on ``device``.
 
     The port of ``sqd_tpu.ops.hamiltonian.build_sci_hamiltonian``, with its
-    ``tables_backend``: ``"native"`` builds the tables on the host (the
-    native library); ``"auto"`` where :func:`_tables_route` says: on the
-    host on the CPU, on the card on a CUDA device
-    (:func:`card_tables.build_tables`, the native build's tables bit for
-    bit, counted in ``card_tables.build_tables.launches``); ``"device"``
+    ``tables_backend``, routed by :func:`_tables_route`: ``"native"`` builds
+    the tables on the host (the native library, or ``table_cache``);
+    ``"auto"`` on the host on the CPU, on the card on a CUDA device, a
+    ``table_cache`` given or not (:func:`card_tables.build_tables`, the
+    native build's tables bit for bit, counted in
+    ``card_tables.build_tables.launches``); ``"device"``
     builds them on ``device`` from the packed strings as torch ops
     (:func:`linktab.build_gather_tables`, :func:`build_samespin_tables`; its
     same-spin values computed in ``dtype``, its lists keeping valid zero
@@ -905,9 +916,10 @@ def build_sci_hamiltonian(
     computed on the host, or from ``DEVICE_DIAG_MIN_ELEMS`` padded
     determinants on, assembled on ``device`` from its rank-structured parts.
     A ``table_cache`` (:class:`sqd_tpu_torch.ops.table_cache.TableCache`)
-    supplies the tables of ``"auto"`` and ``"native"`` where ``sqd_tpu``
-    would use it: packed width <= 2 words and at most 4096 same-spin
-    candidates per string on both spins; the tables are the same either way.
+    supplies the host's tables (``"native"``; ``"auto"`` off the card) where
+    ``sqd_tpu`` would use it: packed width <= 2 words and at most 4096
+    same-spin candidates per string on both spins; the tables are the same
+    either way.
     """
     with span("tables"):
         m, n = np.asarray(strs_a_packed).shape[0], np.asarray(strs_b_packed).shape[0]
@@ -933,14 +945,15 @@ def build_sci_hamiltonian(
             raise ValueError(
                 f"unknown tables_backend {tables_backend!r} (expected 'auto', 'native' or 'device')"
             )
-        route = _tables_route(device, table_cache, strs_a_packed, norb, (n_a, n_b))
+        route = _tables_route(device, table_cache, strs_a_packed, norb, (n_a, n_b),
+                              tables_backend)
         host = None
-        if tables_backend == "auto" and route == "card":
+        if route == "card":
             with span("tables.card"):
                 src_a, sign_a, src_b, sign_b, ia, va, ib, vb = card_tables.build_tables(
                     strs_a_packed, strs_b_packed, h1_np, eri_np, norb, (n_a, n_b), device=device)
                 va, vb = va.to(dtype), vb.to(dtype)
-        elif tables_backend in ("auto", "native"):
+        elif route in ("cache", "native"):
             tables = table_cache if route == "cache" else native
             with span("tables.host"):
                 host = (*tables.gather_tables(strs_a_packed, norb),

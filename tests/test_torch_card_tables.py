@@ -154,7 +154,7 @@ def _assert_equal(got, want):
 
 @pytest.mark.parametrize("device, cache, norb, nelec, want", [
     ("cuda", False, 16, (5, 5), "card"),
-    ("cuda", True, 16, (5, 5), "cache"),
+    ("cuda", True, 16, (5, 5), "card"),  # the card needs no cache
     ("cuda", False, 70, (3, 3), "native"),  # three words a string
     ("cuda", True, 70, (3, 3), "native"),
     ("cuda", True, 36, (18, 18), "card"),  # too many candidates for the cache
@@ -167,6 +167,71 @@ def test_route(device, cache, norb, nelec, want):
     got = hamiltonian._tables_route(torch.device(device), TableCache() if cache else None,
                                     packed, norb, nelec)
     assert got == want
+
+
+@pytest.mark.parametrize("device, cache, norb, nelec, backend, want", [
+    ("cuda", True, 16, (5, 5), "native", "cache"),  # "native" keeps a usable cache
+    ("cuda", False, 16, (5, 5), "native", "native"),
+    ("cuda", True, 36, (18, 18), "native", "native"),  # too many candidates for the cache
+    ("cuda", True, 16, (5, 5), "device", "device"),
+    ("cpu", True, 16, (5, 5), "native", "cache"),
+    ("cpu", True, 16, (5, 5), "device", "device"),
+])
+def test_route_by_backend(device, cache, norb, nelec, backend, want):
+    """The route of each explicit backend: only ``"auto"`` takes the card."""
+    packed = _pack(np.array([(1 << nelec[0]) - 1], dtype=object), norb)
+    got = hamiltonian._tables_route(torch.device(device), TableCache() if cache else None,
+                                    packed, norb, nelec, backend)
+    assert got == want
+
+
+def _table_fields(ham):
+    return [ham.src_a, ham.sign_a, ham.src_b, ham.sign_b, ham.nbr_idx_a, ham.nbr_val_a,
+            ham.nbr_idx_b, ham.nbr_val_b]
+
+
+def _loop_shape():
+    """The SQD loop's batch shape: 16 orbitals, (5,5)e, 950 strings a spin."""
+    h1, eri = _fcidump("n2_631g_cas16o_5a5b.fcidump")
+    a, b = excitation_strings(950, 16, 5, 1), excitation_strings(950, 16, 5, 2)
+    return _pack(a, 16), _pack(b, 16), h1, eri, 16, (5, 5)
+
+
+@pytest.mark.parametrize("backend", ["auto", "native"])
+def test_cpu_operator_draws_on_the_cache(backend):
+    """On the CPU both host backends build from a given ``TableCache``: rows
+    are asked of it, none of the card, and the tables are the native ones."""
+    pa, pb, h1, eri, norb, nelec = _loop_shape()
+    cache = TableCache()
+    requested, builds = TableCache.rows_requested, card_tables.build_tables.launches
+    ham = hamiltonian.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device="cpu",
+                                            table_cache=cache, tables_backend=backend)
+    assert TableCache.rows_requested > requested
+    assert cache.native_rows_computed > 0
+    assert card_tables.build_tables.launches == builds
+    ref = hamiltonian.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device="cpu",
+                                            tables_backend="native")
+    for name, x, y in zip(NAMES, _table_fields(ham), _table_fields(ref)):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+def test_cpu_loop_draws_on_the_cache():
+    """The loop's default solver on the CPU still builds every batch's tables
+    from its ``TableCache``, and reuses rows across iterations."""
+    from chip_smoke import loop_shots
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.primitives import BitArray
+
+    h1, eri = _fcidump("n2_631g_cas16o_5a5b.fcidump")
+    requested, computed = TableCache.rows_requested, TableCache.rows_computed
+    builds = card_tables.build_tables.launches
+    fermion.diagonalize_fermionic_hamiltonian(
+        h1, eri, BitArray.from_bool_array(loop_shots(2000)), samples_per_batch=60,
+        norb=16, nelec=(5, 5), num_batches=2, max_iterations=2, max_dim=40, seed=3,
+        symmetrize_spin=False, device="cpu")
+    requested = TableCache.rows_requested - requested
+    assert requested > 0 and TableCache.rows_computed - computed < requested
+    assert card_tables.build_tables.launches == builds
 
 
 @pytest.mark.parametrize("norb, nelec", [(16, 5), (26, 5), (8, 1), (8, 7), (6, 0), (6, 6),
@@ -273,3 +338,62 @@ def test_auto_operator_on_the_card_equals_native(card, name, dtype, pad_to):
     assert card_tables.gather_tables.launches == gathers + 2
     for field in ("src_a", "sign_a", "src_b", "sign_b"):
         assert torch.equal(getattr(basis, field), getattr(host, field)), field
+
+
+@pytest.mark.card
+def test_loop_shape_operator_on_the_card_ignores_the_cache(card):
+    """At the loop's batch shape, ``"auto"`` with a ``TableCache`` builds on
+    the card and asks the cache nothing; ``"native"`` with a cache draws on
+    it and launches no card build; both give the same operator, bit for bit."""
+    pa, pb, h1, eri, norb, nelec = _loop_shape()
+    cache = TableCache()
+    requested, builds = TableCache.rows_requested, card_tables.build_tables.launches
+    auto = hamiltonian.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=card,
+                                             table_cache=cache)
+    torch.cuda.synchronize()
+    assert card_tables.build_tables.launches == builds + 1
+    assert TableCache.rows_requested == requested
+    ref = hamiltonian.build_sci_hamiltonian(pa, pb, h1, eri, norb, nelec, device=card,
+                                            table_cache=cache, tables_backend="native")
+    assert card_tables.build_tables.launches == builds + 1
+    assert TableCache.rows_requested > requested and cache.native_rows_computed > 0
+    for name, x, y in zip(NAMES + ["hdiag"], _table_fields(auto) + [auto.hdiag],
+                          _table_fields(ref) + [ref.hdiag]):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), name
+
+
+@pytest.mark.card
+def test_loop_on_the_card_equals_the_cached_route(card, monkeypatch):
+    """Two iterations of two batches of the loop's default solver: one card
+    build per batch solve and no cache row; the energies equal, to 1e-12 Ha,
+    those of the same loop with the tables drawn from its ``TableCache`` (the
+    route before the card took it)."""
+    from chip_smoke import LOOP_SETTINGS, loop_shots
+    from sqd_tpu_torch import fermion
+    from sqd_tpu_torch.primitives import BitArray
+
+    h1, eri = _fcidump("n2_631g_cas16o_5a5b.fcidump")
+    shots = BitArray.from_bool_array(loop_shots())
+    settings = dict(LOOP_SETTINGS, num_batches=2, max_iterations=2)
+
+    def run():
+        energies = []
+        requested, builds = TableCache.rows_requested, card_tables.build_tables.launches
+        fermion.diagonalize_fermionic_hamiltonian(
+            h1, eri, shots, norb=16, nelec=(5, 5), device=card,
+            callback=lambda results: energies.append([r.energy for r in results]), **settings)
+        return (energies, TableCache.rows_requested - requested,
+                card_tables.build_tables.launches - builds)
+
+    energies, requested, builds = run()
+    solves = sum(map(len, energies))
+    assert solves == 4 and builds == solves and requested == 0
+    route = hamiltonian._tables_route
+
+    def cached_route(device, table_cache, *args):
+        return "cache" if table_cache is not None else route(device, table_cache, *args)
+
+    monkeypatch.setattr(hamiltonian, "_tables_route", cached_route)
+    cached, requested, builds = run()
+    assert builds == 0 and requested > 0
+    np.testing.assert_allclose(energies, cached, rtol=0, atol=1e-12)
